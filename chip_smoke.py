@@ -1,0 +1,456 @@
+#!/usr/bin/env python3
+"""GPU smoke run of egm_unet_torch: builds the CUDA kernels from
+``egm_unet_torch/csrc``, holds each against its plain PyTorch version at the
+shapes the serving path gives it, serves a few requests through
+``serving.Predictor`` at the published width (base_c 32, 2 classes, bf16,
+batch 8) and checks the card against the CPU on a small bucket.
+
+    python3 chip_smoke.py
+
+Needs one CUDA GPU and ``nvcc``; exits non-zero, printing no result, without
+them.  Each phase prints one JSON line; the last three lines are the card's
+``nvidia-smi`` name and power limit, the per-kernel summary, and
+``{"ok": true, "device": {...}}``.  Per-shape kernel records also go to
+``chiprun_out/chip_smoke_kernels.jsonl``.
+
+float32 checks run with TF32 off (``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32`` False), so the plain versions on
+the card compute in full float32.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from egm_unet_torch.data.synthetic import synthetic_tp_sample
+from egm_unet_torch.data.transforms import normalize, resize_short_side
+from egm_unet_torch.models import create_model
+from egm_unet_torch.nn.attention import MCALayer
+from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU
+from egm_unet_torch.ops.cuda import (build, conv3x3, launch_counts, mca,
+                                     reset_launch_counts, upconv)
+from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_of
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+BUCKET = (576, 768)  # the 565x752 requests' bucket
+BATCH = 8
+BASE_C = 32
+SEED = 0
+PER_FORWARD = {"mca_fused": 4, "conv3x3_gemm": 18, "up_concat_conv": 4}
+SOURCES = {"mca_fused": "egm_unet_torch/csrc/mca_fused.cu",
+           "conv3x3_gemm": "egm_unet_torch/csrc/conv3x3.cu",
+           "up_concat_conv": "egm_unet_torch/csrc/up_concat_conv.cu"}
+REPLACES = {"mca_fused": "egm_unet_tpu/ops/pallas/mca.py:133",
+            "conv3x3_gemm": "egm_unet_tpu/ops/pallas/conv3x3.py:306",
+            "up_concat_conv": "egm_unet_tpu/ops/pallas/upconv.py:136"}
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16
+# tensor-core and float32 CUDA-core FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Median CUDA-event time of one call."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(nb: int, flops: float, dtype) -> tuple:
+    t_bytes = nb / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------- phases
+
+def phase_device() -> dict:
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    dev = {"name": torch.cuda.get_device_name(0),
+           "count": torch.cuda.device_count(),
+           "nvidia_smi": smi.stdout.strip().splitlines()[0],
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "tf32": False}
+    emit({"phase": "device", **dev})
+    return dev
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    info = build.build_all()
+    regs = {name: [ln.strip() for ln in i["ptxas"].splitlines() if "registers" in ln]
+            for name, i in info.items()}
+    OUT_DIR.mkdir(exist_ok=True)
+    for name, i in info.items():
+        (OUT_DIR / f"ptxas_{name}.txt").write_text(i["ptxas"])
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "per_kernel_s": {n: round(i["seconds"], 3) for n, i in info.items()},
+          "ptxas_registers": regs})
+
+
+def make_predictor():
+    cfg = PredictorConfig(model_name="egm_unet", base_c=BASE_C, num_classes=2,
+                          batch_size=BATCH, dtype="bfloat16")
+    return Predictor(config=cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(SEED))
+
+
+def bucket_batch(pred, images) -> torch.Tensor:
+    """The predictor's own preprocessing, packed into one bucket batch."""
+    batch = np.zeros((BATCH, *BUCKET, 3), np.float32)
+    for row, img in enumerate(images):
+        p = pred._preprocess(img)
+        check(p.shape[0] <= BUCKET[0] and p.shape[1] <= BUCKET[1],
+              f"image {p.shape} does not fit bucket {BUCKET}")
+        batch[row, :p.shape[0], :p.shape[1]] = p
+    return torch.from_numpy(batch).to("cuda", pred.dtype)
+
+
+def capture_sites(model, x):
+    """Run one forward and record every kernel call site with its inputs."""
+    sites, hooks = [], []
+    for name, mod in model.named_modules():
+        if isinstance(mod, (ConvBNReLU, BasicConv, MCALayer)):
+            if isinstance(mod, BasicConv) and not mod.Conv_0.is_plain3x3():
+                continue
+
+            def hook(m, args, kwargs, name=name):
+                sites.append((name, m, args, kwargs))
+            hooks.append(mod.register_forward_pre_hook(hook, with_kwargs=True))
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+def site_call(site, dtype=None):
+    """(kernel name, shape key, kernel fn, plain fn, library fn or None,
+    bytes, flops, dtype) for one captured site, its tensors cast to
+    ``dtype`` when given."""
+    name, mod, args, kwargs = site
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype).contiguous())
+    if isinstance(mod, MCALayer):
+        x = cast(args[0].contiguous())
+        with torch.inference_mode():
+            g = [mod.h_cw(x), mod.w_hc(x), mod.c_hw(x)]
+        return ("mca_fused", ("mca", tuple(x.shape), str(x.dtype)),
+                lambda: mca.mca_fused(x, *g), lambda: mca.mca_plain(x, *g), None,
+                2 * nbytes(x) + nbytes(*g), 40.0 * x.numel(), x.dtype)
+    conv = mod.Conv_0
+    k, b = cast(conv.kernel), conv.bias.float()
+    up_pair = kwargs.get("up_pair")
+    if up_pair is not None:
+        x2, x1 = cast(up_pair[0].contiguous()), cast(up_pair[1].contiguous())
+        co = k.shape[-1]
+        out_numel = x2.shape[0] * x2.shape[1] * x2.shape[2] * co
+        flops = 2.0 * out_numel * 9 * k.shape[2]
+        return ("up_concat_conv",
+                ("up", tuple(x2.shape), tuple(x1.shape), co, str(x2.dtype)),
+                lambda: upconv.up_concat_conv(x2, x1, k, b),
+                lambda: upconv.up_concat_conv_plain(x2, x1, k, b), None,
+                nbytes(x2, x1, k, b) + out_numel * x2.element_size(), flops, x2.dtype)
+    x = cast(args[0].contiguous())
+    relu = mod.relu if isinstance(mod, BasicConv) else True
+    co = k.shape[-1]
+    out_numel = x.numel() // x.shape[-1] * co
+    w_oihw = k.permute(3, 2, 0, 1).contiguous()
+    bias_lib = b.to(x.dtype)
+
+    def library():  # cuDNN's conv of the same inputs, timed only
+        return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias_lib, padding=1)
+    return ("conv3x3_gemm", ("conv", tuple(x.shape), co, relu, str(x.dtype)),
+            lambda: conv3x3.conv3x3_gemm(x, k, b, relu=relu),
+            lambda: conv3x3.conv3x3_plain(x, k, b, relu=relu), library,
+            nbytes(x, k, b) + out_numel * x.element_size(),
+            2.0 * out_numel * 9 * x.shape[-1], x.dtype)
+
+
+def compare(kernel_fn, plain_fn, dtype) -> tuple:
+    got = kernel_fn()
+    torch.cuda.synchronize()
+    ref = plain_fn()
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    check(bool(torch.isfinite(got).all()), "kernel output is not finite")
+    # bf16: one rounding step of the output's magnitude (both round the same
+    # float32 sums, taken in another order); float32: 1e-4 relative
+    tol = 2.0 ** -7 * max(scale, 1e-3) if dtype == torch.bfloat16 \
+        else 1e-4 * max(scale, 1.0)
+    return err, tol, scale
+
+
+def kernel_record(site: str, call, reps: int, **extra) -> dict:
+    """Check one kernel call against its plain version, time both (and the
+    library call), print the record; fails the run past the tolerance."""
+    name, key, kfn, pfn, lfn, nb, flops, dtype = call
+    err, tol, scale = compare(kfn, pfn, dtype)
+    t_bound, by = bound(nb, flops, dtype)
+    r = {"phase": "kernel", "name": name, "site": site, **extra,
+         "dtype": str(dtype).split(".")[1],
+         "shape": [list(s) if isinstance(s, tuple) else s for s in key[1:-1]],
+         "max_abs_err": err, "tol": tol, "out_max_abs": scale,
+         "kernel_ms": time_ms(kfn, reps=reps), "plain_ms": time_ms(pfn, reps=reps // 2),
+         "library_ms": None if lfn is None else time_ms(lfn, reps=reps),
+         "bound_ms": t_bound, "bound_by": by, "bytes": nb, "flops": flops}
+    emit(r)
+    check(err <= tol, f"{name} {r['dtype']} at {site}: max abs err {err} > tol {tol}")
+    return r
+
+
+def phase_kernels(pred, images) -> list:
+    x = bucket_batch(pred, images)
+    sites = capture_sites(pred.model, x)
+    seen = {}
+    for site in sites:
+        call = site_call(site)
+        key = call[1]
+        if key in seen:
+            seen[key]["count"] += 1
+        else:
+            seen[key] = {"site": site[0], "call": call, "count": 1, "raw": site}
+    counts = {}
+    for rec in seen.values():
+        counts[rec["call"][0]] = counts.get(rec["call"][0], 0) + rec["count"]
+    check(counts == PER_FORWARD, f"kernel sites per forward {counts} != {PER_FORWARD}")
+
+    records = [kernel_record(rec["site"], rec["call"], 10,
+                             sites_per_forward=rec["count"]) for rec in seen.values()]
+    # one float32 case per kernel, at its first site
+    firsts = {}
+    for rec in seen.values():
+        firsts.setdefault(rec["call"][0], rec)
+    records += [kernel_record(rec["site"], site_call(rec["raw"], torch.float32), 5)
+                for rec in firsts.values()]
+    del sites, seen, firsts
+    torch.cuda.empty_cache()
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke_kernels.jsonl", "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+    return records
+
+
+def phase_edges() -> None:
+    """Each kernel against its plain version at small odd shapes: partial
+    pixel and channel tiles, C=3, every output-width tile config."""
+    gen = torch.Generator().manual_seed(SEED)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).cuda()
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = []
+        for c, co in ((3, 7), (5, 20), (33, 70)):
+            x, w, b = rnd(2, 7, 9, c).to(dtype), rnd(3, 3, c, co, scale=0.3), rnd(co)
+            cases.append(("conv3x3_gemm", lambda x=x, w=w, b=b: conv3x3.conv3x3_gemm(
+                x, w, b, relu=True), lambda x=x, w=w, b=b: conv3x3.conv3x3_plain(
+                x, w, b, relu=True)))
+        x, w = rnd(1, 9, 11, 8).to(dtype), rnd(3, 3, 8, 5, scale=0.3)
+        cases.append(("conv3x3_gemm", lambda x=x, w=w: conv3x3.conv3x3_gemm(x, w),
+                      lambda x=x, w=w: conv3x3.conv3x3_plain(x, w)))
+        for b_, h, w_, c in ((2, 9, 13, 20), (1, 5, 17, 36)):
+            x = rnd(b_, h, w_, c).to(dtype)
+            g = [torch.rand(b_, n, generator=gen).cuda() for n in (h, w_, c)]
+            cases.append(("mca_fused", lambda x=x, g=g: mca.mca_fused(x, *g),
+                          lambda x=x, g=g: mca.mca_plain(x, *g)))
+        for b_, h, w_, c1, c2, co in ((2, 5, 7, 6, 10, 9), (1, 3, 4, 40, 24, 33)):
+            x1, x2 = rnd(b_, h, w_, c1).to(dtype), rnd(b_, 2 * h, 2 * w_, c2).to(dtype)
+            k, bias = rnd(3, 3, c1 + c2, co, scale=0.2), rnd(co)
+            cases.append(("up_concat_conv",
+                          lambda a=x2, b=x1, k=k, s=bias: upconv.up_concat_conv(a, b, k, s),
+                          lambda a=x2, b=x1, k=k, s=bias: upconv.up_concat_conv_plain(
+                              a, b, k, s)))
+        for name, kfn, pfn in cases:
+            err, tol, _ = compare(kfn, pfn, dtype)
+            check(err <= tol, f"{name} {dtype} edge case: max abs err {err} > tol {tol}")
+            key = f"{name}/{str(dtype).split('.')[1]}"
+            worst[key] = max(worst.get(key, 0.0), err / tol)
+    emit({"phase": "edge_shapes", "cases": 2 * len(cases), "worst_err_over_tol": worst})
+
+
+def phase_serving(pred, dev) -> dict:
+    sizes = [(565, 752), (565, 752), (480, 640), (600, 500)]
+    images = [synthetic_tp_sample(i, h, w)[0] for i, (h, w) in enumerate(sizes)]
+    buckets = {}
+    for img in images:
+        key = bucket_of(pred._preprocess(img).shape)
+        buckets[key] = buckets.get(key, 0) + 1
+    forwards = sum(-(-n // BATCH) for n in buckets.values())
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    masks = pred.predict(images)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+
+    expect = {k: v * forwards for k, v in PER_FORWARD.items()}
+    check(launches == expect, f"launches {launches} != {expect} for {forwards} forwards")
+    for img, mask in zip(images, masks):
+        check(mask.shape == img.shape[:2], f"mask {mask.shape} for image {img.shape}")
+        check(mask.dtype == np.uint8 and int(mask.max()) <= 1, "mask values not in {0,1}")
+
+    x = bucket_batch(pred, images[:2])
+    with torch.inference_mode():
+        logits = pred.model(x)["out"]
+    check(tuple(logits.shape) == (BATCH, *BUCKET, 2), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "serving logits are not finite")
+    ms = time_ms(lambda: pred.forward(x), reps=5, warm=1)
+    rec = {"phase": "serving", "requests": len(images), "buckets": {
+        f"{k[0]}x{k[1]}": n for k, n in buckets.items()}, "forwards": forwards,
+        "launches": launches, "launches_per_forward": PER_FORWARD,
+        "predict_wall_s": wall, "bucket": list(BUCKET), "batch": BATCH,
+        "dtype": "bfloat16", "ms_per_batch": ms, "img_per_s": BATCH / ms * 1e3,
+        "card": dev["nvidia_smi"],
+        "foreground_share": float(np.mean([mk.mean() for mk in masks]))}
+    emit(rec)
+    phase_profile(pred, x)
+    return rec
+
+
+def phase_profile(pred, x) -> None:
+    """Device time of one serving forward by kernel, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred.forward(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    by_kernel = {"conv3x3_gemm+up_concat_conv": sum(
+        r[0] for r in rows if "igemm3x3_kernel" in r[2]),
+        "mca_fused": sum(r[0] for r in rows if "mca_fused_kernel" in r[2])}
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "serving_profile.txt").write_text(
+        "\n".join(f"{ms:10.3f} ms {n:5d}x  {k}" for ms, n, k in rows) + "\n")
+    emit({"phase": "profile", "wall_ms": wall_ms, "device_ms": device_ms,
+          "device_idle_share": None if not rows else max(0.0, 1 - device_ms / wall_ms),
+          "by_kernel_ms": by_kernel,
+          "top": [{"ms": ms, "calls": n, "name": k[:80]} for ms, n, k in rows[:8]]})
+
+
+def phase_card_vs_cpu() -> dict:
+    model = create_model("egm_unet", base_c=BASE_C, num_classes=2,
+                         generator=torch.Generator().manual_seed(SEED)).eval()
+    imgs = []
+    for i in range(2):
+        img, _ = synthetic_tp_sample(10 + i, 160, 128)
+        imgs.append(normalize(resize_short_side(img, None, 128)[0]))
+    x = torch.from_numpy(np.stack(imgs)[:, :128, :128].copy())  # 2 x 128 x 128 x 3
+    with torch.inference_mode():
+        cpu = model(x)["out"]
+        gpu_model = model.to("cuda")
+        reset_launch_counts()
+        gpu = gpu_model(x.to("cuda"))["out"].cpu()
+    launches = launch_counts()
+    check(launches == PER_FORWARD, f"float32 forward launches {launches}")
+    diff = (gpu - cpu).abs().max().item()
+    scale = cpu.abs().max().item()
+    agree = (gpu.argmax(-1) == cpu.argmax(-1)).float().mean().item()
+    tol = 1e-3 * max(scale, 1.0)
+    rec = {"phase": "card_vs_cpu", "shape": list(x.shape), "dtype": "float32",
+           "logits_max_abs_diff": diff, "logits_max_abs": scale, "tol": tol,
+           "mask_agreement": agree, "launches": launches}
+    emit(rec)
+    check(bool(torch.isfinite(gpu).all()), "card logits are not finite")
+    check(diff <= tol, f"card vs CPU logits differ by {diff} > {tol}")
+    check(agree >= 0.99, f"card vs CPU mask agreement {agree} < 0.99")
+    return rec
+
+
+def summary(records, launches) -> list:
+    """Per kernel: times summed over one forward's launches at the bucket
+    (each path shape's time times its sites per forward)."""
+    out = []
+    for name in PER_FORWARD:
+        mine = [r for r in records if r["name"] == name]
+        path = [r for r in mine if "sites_per_forward" in r]
+        per_fwd = lambda key: sum(r[key] * r["sites_per_forward"] for r in path)
+        t_bytes = sum(r["bound_ms"] * r["sites_per_forward"] for r in path
+                      if r["bound_by"] == "bytes")
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": per_fwd("kernel_ms"), "plain_ms": per_fwd("plain_ms"),
+            "bound_ms": per_fwd("bound_ms"),
+            "bound_by": "bytes" if t_bytes >= per_fwd("bound_ms") / 2 else "operations",
+            "library_ms": None if path[0]["library_ms"] is None else per_fwd("library_ms"),
+            "per": f"one forward, batch {BATCH}, {BUCKET[0]}x{BUCKET[1]}, bf16",
+            "shapes": len(path)})
+    return out
+
+
+@torch.inference_mode()
+def main() -> None:
+    dev = phase_device()
+    phase_build()
+    pred = make_predictor()
+    images = [synthetic_tp_sample(i)[0] for i in range(BATCH)]
+    records = phase_kernels(pred, images)
+    phase_edges()
+    serving = phase_serving(pred, dev)
+    phase_card_vs_cpu()
+    kernels = summary(records, serving["launches"])
+    print(dev["nvidia_smi"])
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
+                                 "count": dev["count"]}})
+
+
+if __name__ == "__main__":
+    main()

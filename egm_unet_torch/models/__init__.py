@@ -1,0 +1,8 @@
+"""EGM-UNet family, BN-folded inference graphs."""
+
+from egm_unet_torch.models.egm_unet import DoubleConv1, EGMUNet  # noqa: F401
+from egm_unet_torch.models.registry import (  # noqa: F401
+    MODEL_CONFIGS,
+    create_model,
+    init_weights,
+)

@@ -1,0 +1,86 @@
+"""EGM-UNet with the composable A/B/C ablation modules, BN folded (port of
+``egm_unet_tpu/models/egm_unet.py``).
+
+- A ``block='edge'``: EdgeEnhancedGRFB after each encoder DoubleConv1.
+- B ``use_rga``: RecursiveGatedAttention at the bottleneck.
+- C ``use_mca``: MCALayer between the two convs of each DoubleConv1.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from egm_unet_torch.models.unet import Up
+from egm_unet_torch.nn.attention import MCALayer, RecursiveGatedAttention
+from egm_unet_torch.nn.grfb import EdgeEnhancedGRFB
+from egm_unet_torch.nn.layers import Conv, ConvBNReLU, DoubleConv
+from egm_unet_torch.ops.pooling import max_pool2d
+
+_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
+
+
+class DoubleConv1(nn.Module):
+    """Encoder stage: ConvBNReLU [-> MCALayer] -> ConvBNReLU [-> EGRFB]."""
+
+    def __init__(self, in_ch: int, features: int, block: Optional[str] = "edge",
+                 use_mca: bool = True):
+        super().__init__()
+        if block not in ("edge", None):
+            raise NotImplementedError(f"block={block!r} (GRFB) {_NOT_PORTED}")
+        self.conv1 = ConvBNReLU(in_ch, features)
+        self.mca = MCALayer(features) if use_mca else None
+        self.conv2 = ConvBNReLU(features, features)
+        self.egrfb = EdgeEnhancedGRFB(features, features) if block == "edge" else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv1(x)
+        if self.mca is not None:
+            x = self.mca(x)
+        x = self.conv2(x)
+        if self.egrfb is not None:
+            x = self.egrfb(x)
+        return x
+
+
+class EGMUNet(nn.Module):
+    """``block='edge', use_rga=True, use_mca=True`` is the published A+B+C
+    configuration; the decoder is the bilinear one.  Input NHWC float with
+    3 channels; returns ``{"out": float32 logits}``."""
+
+    def __init__(self, num_classes: int = 2, base_c: int = 32,
+                 block: Optional[str] = "edge", use_rga: bool = True,
+                 use_mca: bool = True):
+        super().__init__()
+        c = base_c
+        self.in_conv = DoubleConv(3, c)
+
+        def down(cin, cout):
+            return DoubleConv1(cin, cout, block=block, use_mca=use_mca)
+
+        self.down1 = down(c, 2 * c)
+        self.down2 = down(2 * c, 4 * c)
+        self.down3 = down(4 * c, 8 * c)
+        self.down4 = down(8 * c, 8 * c)
+        self.attn1 = RecursiveGatedAttention(dim=8 * c) if use_rga else None
+        self.up1 = Up(8 * c, 8 * c, 4 * c)
+        self.up2 = Up(4 * c, 4 * c, 2 * c)
+        self.up3 = Up(2 * c, 2 * c, c)
+        self.up4 = Up(c, c, c)
+        self.out_conv = Conv(c, num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        x1 = self.in_conv(x)
+        x2 = self.down1(max_pool2d(x1))
+        x3 = self.down2(max_pool2d(x2))
+        x4 = self.down3(max_pool2d(x3))
+        x5 = self.down4(max_pool2d(x4))
+        if self.attn1 is not None:
+            x5 = self.attn1(x5)
+        x = self.up1(x5, x4)
+        x = self.up2(x, x3)
+        x = self.up3(x, x2)
+        x = self.up4(x, x1)
+        return {"out": self.out_conv(x).float()}

@@ -1,0 +1,52 @@
+"""Model registry: the seven EGM-UNet configurations of the JAX package's
+``models/registry.py``, BN folded."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from egm_unet_torch.models.egm_unet import EGMUNet
+
+# name -> EGMUNet kwargs (block, use_rga, use_mca)
+MODEL_CONFIGS = {
+    "egm_unet": dict(block="edge", use_rga=True, use_mca=True),  # A+B+C
+    "egm_unet_a": dict(block="edge", use_rga=False, use_mca=False),
+    "egm_unet_b": dict(block=None, use_rga=True, use_mca=False),
+    "egm_unet_c": dict(block=None, use_rga=False, use_mca=True),
+    "egm_unet_ab": dict(block="edge", use_rga=True, use_mca=False),
+    "egm_unet_ac": dict(block="edge", use_rga=False, use_mca=True),
+    "egm_unet_bc": dict(block=None, use_rga=True, use_mca=True),
+}
+NOT_PORTED = ("unet", "grfb_unet")
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights drawn from ``generator`` (on the CPU), module by module
+    in registration order, so one seed gives one model."""
+    for mod in model.modules():
+        reset = getattr(mod, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)
+    return model
+
+
+def create_model(name: str = "egm_unet", num_classes: int = 2, base_c: int = 32,
+                 generator: Optional[torch.Generator] = None) -> EGMUNet:
+    """The BN-folded inference graph of ``name`` (the only graph ported; fold
+    BN statistics with ``models.fold_bn.fold_bn_variables``).  Load weights
+    with ``utils.from_flax.load_flax_variables``, or draw them from
+    ``generator``."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"model {name!r} needs the GRFB/UNet modules, which are not ported "
+            "yet (ROADMAP.md, queue 1)")
+    if name not in MODEL_CONFIGS:
+        raise ValueError(f"unknown model {name!r}; choose from "
+                         f"{[*MODEL_CONFIGS, *NOT_PORTED]}")
+    model = EGMUNet(num_classes=num_classes, base_c=base_c, **MODEL_CONFIGS[name])
+    if generator is not None:
+        init_weights(model, generator)
+    return model

@@ -1,0 +1,150 @@
+"""Attention modules of the EGM-UNet family, NHWC (port of
+``egm_unet_tpu/nn/attention.py``).
+
+The MCALayer's three gate vectors are small reductions and stay plain
+PyTorch; everything after them is one ``mca_fused`` launch.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from egm_unet_torch.nn.layers import Conv, uniform_
+from egm_unet_torch.ops.cuda.mca import mca_fused
+
+
+def mca_kernel_size(channels: int) -> int:
+    """k = round(|log2(C) - 1| / 1.5) forced odd."""
+    temp = round(abs((math.log2(channels) - 1) / 1.5))
+    k = temp if temp % 2 else temp - 1
+    return max(k, 1)
+
+
+class MCAGate(nn.Module):
+    """One coordinate-attention gate along ``axis`` (1=H, 2=W, 3=C of NHWC):
+    avg and std (centred two-pass, Bessel factor n/(n-1)) over the other two
+    axes, blended as 0.5*(avg+std) + sigmoid(w0)*avg + sigmoid(w1)*std, a
+    length-k zero-padded 1-D conv, sigmoid.  Statistics in float32; returns
+    the float32 gate vector [B, L], which ``mca_fused`` applies."""
+
+    def __init__(self, axis: int, k_size: int = 3):
+        super().__init__()
+        self.axis = axis
+        self.weight = nn.Parameter(torch.zeros(2))
+        self.conv = nn.Parameter(torch.zeros(k_size))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.copy_(torch.rand(2, generator=generator))
+        uniform_(self.conv, 1.0, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        reduce_axes = tuple(a for a in (1, 2, 3) if a != self.axis)
+        n = 1
+        for a in reduce_axes:
+            n *= x.shape[a]
+        xf = x.float()
+        avg = xf.mean(dim=reduce_axes)
+        keep = [x.shape[0], 1, 1, 1]
+        keep[self.axis] = x.shape[self.axis]
+        var = ((xf - avg.reshape(keep)) ** 2).mean(dim=reduce_axes) * (n / max(n - 1, 1))
+        std = var.sqrt()
+        sw = torch.sigmoid(self.weight)
+        blended = 0.5 * (avg + std) + sw[0] * avg + sw[1] * std
+        k = self.conv.shape[0]
+        return torch.sigmoid(F.conv1d(blended[:, None, :],
+                                      self.conv.float()[None, None, :],
+                                      padding=(k - 1) // 2)[:, 0, :]).contiguous()
+
+
+class MCALayer(nn.Module):
+    """Enhanced multi-dimension coordinate attention (module "C"): the three
+    gates, then the fused enhancement kernel (``ops/cuda/mca.py``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.h_cw = MCAGate(axis=1, k_size=3)
+        self.w_hc = MCAGate(axis=2, k_size=3)
+        self.c_hw = MCAGate(axis=3, k_size=mca_kernel_size(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        return mca_fused(x, self.h_cw(x), self.w_hc(x), self.c_hw(x), groups=4)
+
+
+class RecursiveGatedAttention(nn.Module):
+    """Module "B": recursive gating at the bottleneck (gnconv-style, order 2,
+    gate reduction 8, 3x3 depthwise conv); exact GELU."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        order, reduction = 2, 8
+        split = [dim // (2 ** i) for i in range(1, order)]
+        split.append(dim // (2 ** (order - 1)))
+        split.reverse()
+        if sum(split) > dim:
+            split[-1] = dim - sum(split[:-1])
+        self.split = tuple(split)
+        total = sum(split)
+        self.proj_in = Conv(dim, split[0] + total, 1)
+        self.scale = nn.Parameter(torch.ones(()))
+        self.dwconv = Conv(total, total, 3, padding=1, groups=total)
+        for i, size in enumerate(split):
+            hidden = max(size // reduction, 8)
+            setattr(self, f"gate{i}_down", Conv(size, hidden, 1))
+            setattr(self, f"gate{i}_up", Conv(hidden, 1, 1))
+            if i < len(split) - 1:
+                setattr(self, f"transform{i}", Conv(size, split[i + 1], 1))
+        self.proj_out = Conv(split[-1], dim, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        split = self.split
+        fused = self.proj_in(x)
+        base, gates = fused[..., :split[0]], fused[..., split[0]:]
+        gates = self.dwconv(gates) * self.scale.to(gates.dtype)
+        out = base
+        offset = 0
+        for i, size in enumerate(split):
+            g = gates[..., offset:offset + size]
+            offset += size
+            gm = F.gelu(getattr(self, f"gate{i}_down")(g), approximate="none")
+            out = out * torch.sigmoid(getattr(self, f"gate{i}_up")(gm))
+            if i < len(split) - 1:
+                out = getattr(self, f"transform{i}")(out)
+        return self.proj_out(out)
+
+
+class ChannelAttention(nn.Module):
+    """sigmoid(MLP(avgpool) + MLP(maxpool)), reduction 4, no biases."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.fc_down = Conv(channels, channels // 4, 1, use_bias=False)
+        self.fc_up = Conv(channels // 4, channels, 1, use_bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        avg = x.mean(dim=(1, 2), keepdim=True)
+        mx = x.amax(dim=(1, 2), keepdim=True)
+        mlp = lambda v: self.fc_up(F.relu(self.fc_down(v)))
+        return torch.sigmoid(mlp(avg) + mlp(mx))
+
+
+class SpatialAttention(nn.Module):
+    """sigmoid(conv7x7([mean_c; max_c]))."""
+
+    def __init__(self):
+        super().__init__()
+        self.Conv_0 = Conv(2, 1, 7, padding=3, use_bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = torch.cat([x.mean(dim=-1, keepdim=True),
+                       x.amax(dim=-1, keepdim=True)], dim=-1)
+        return torch.sigmoid(self.Conv_0(s))

@@ -1,0 +1,141 @@
+"""Conv blocks of the BN-folded inference graph, NHWC (port of
+``egm_unet_tpu/nn/layers.py``).
+
+Only the folded forms exist here: every conv that the JAX graph follows with
+a BatchNorm carries the folded bias instead (``models/fold_bn.py``).  Module
+and parameter names mirror the flax tree (``Conv_0``, ``ConvBNReLU_0``,
+``kernel``, ``bias``, ...) so ``utils/from_flax.py`` maps one onto the other
+by name.
+
+Every 3x3 / stride 1 / pad 1 / dilation 1 / groups 1 conv of a ConvBNReLU
+or BasicConv goes through the ``conv3x3_gemm`` kernel, at any channel count;
+the decoder's first conv (``up_pair``) goes through ``up_concat_conv``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from egm_unet_torch.ops.conv import conv2d
+from egm_unet_torch.ops.cuda.conv3x3 import conv3x3_gemm
+from egm_unet_torch.ops.cuda.upconv import up_concat_conv
+from egm_unet_torch.ops.pooling import avg_pool2d
+
+
+def _pair(v):
+    return (int(v[0]), int(v[1])) if isinstance(v, (tuple, list)) else (int(v), int(v))
+
+
+def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
+
+
+class Conv(nn.Module):
+    """Conv2d with an HWIO ``kernel`` (kh, kw, in_ch // groups, features)
+    and an optional ``bias``; integer symmetric zero padding."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size=3, stride=1,
+                 padding=0, dilation=1, groups: int = 1, use_bias: bool = True):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride, self.padding = _pair(stride), _pair(padding)
+        self.dilation, self.groups = _pair(dilation), groups
+        self.kernel = nn.Parameter(torch.zeros(kh, kw, in_ch // groups, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def is_plain3x3(self) -> bool:
+        return (tuple(self.kernel.shape[:2]) == (3, 3) and self.stride == (1, 1)
+                and self.padding == (1, 1) and self.dilation == (1, 1)
+                and self.groups == 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """He-uniform kernel (keeps activations at scale through the ReLU
+        stack of a model with random weights), small uniform bias."""
+        fan_in = self.kernel[..., 0].numel()
+        uniform_(self.kernel, math.sqrt(6.0 / fan_in), generator)
+        if self.bias is not None:
+            uniform_(self.bias, 1.0 / math.sqrt(fan_in), generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.kernel, self.bias, stride=self.stride,
+                      padding=self.padding, dilation=self.dilation,
+                      groups=self.groups)
+
+
+class BasicConv(nn.Module):
+    """Folded conv -> (BN) -> ReLU of the GRFB blocks."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size=3, stride=1,
+                 padding=0, dilation=1, groups: int = 1, relu: bool = True):
+        super().__init__()
+        self.relu = relu
+        self.Conv_0 = Conv(in_ch, features, kernel_size, stride, padding,
+                           dilation, groups, use_bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.Conv_0
+        if conv.is_plain3x3():
+            return conv3x3_gemm(x.contiguous(), conv.kernel, conv.bias,
+                                relu=self.relu)
+        x = conv(x)
+        return F.relu(x) if self.relu else x
+
+
+def pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Zero-pad x1 spatially to x2's H/W, split as the reference splits."""
+    dy = x2.shape[1] - x1.shape[1]
+    dx = x2.shape[2] - x1.shape[2]
+    if dy == 0 and dx == 0:
+        return x1
+    return F.pad(x1, (0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
+
+
+class ConvBNReLU(nn.Module):
+    """Folded conv3x3 -> ReLU, one half of DoubleConv.  ``up_pair=(x2, x1)``
+    is the decoder form ``relu(conv3x3(concat([x2, up2x(x1)])))``, x2
+    exactly twice x1's size, in one ``up_concat_conv`` launch."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.Conv_0 = Conv(in_ch, features, 3, padding=1, use_bias=True)
+
+    def forward(self, x: Optional[torch.Tensor] = None, *,
+                up_pair=None) -> torch.Tensor:
+        k, b = self.Conv_0.kernel, self.Conv_0.bias
+        if up_pair is not None:
+            x2, x1 = up_pair
+            return up_concat_conv(x2.contiguous(), x1.contiguous(), k, b)
+        return conv3x3_gemm(x.contiguous(), k, b, relu=True)
+
+
+class DoubleConv(nn.Module):
+    """(conv3x3 -> ReLU) x 2 with an optional mid width."""
+
+    def __init__(self, in_ch: int, features: int, mid_features: Optional[int] = None):
+        super().__init__()
+        mid = mid_features or features
+        self.ConvBNReLU_0 = ConvBNReLU(in_ch, mid)
+        self.ConvBNReLU_1 = ConvBNReLU(mid, features)
+
+    def forward(self, x: Optional[torch.Tensor] = None, *,
+                up_pair=None) -> torch.Tensor:
+        return self.ConvBNReLU_1(self.ConvBNReLU_0(x, up_pair=up_pair))
+
+
+class EdgeAwareFeatureEnhancer(nn.Module):
+    """edge = x - AvgPool3x3(x); w = sigmoid(conv1x1(edge)); out = w*x + x."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.Conv_0 = Conv(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        edge = x - avg_pool2d(x, 3, 1, 1)
+        w = torch.sigmoid(self.Conv_0(edge))
+        return w * x + x

@@ -1,0 +1,86 @@
+"""Bilinear resize as separable interpolation matrices (NHWC).
+
+Port of ``egm_unet_tpu/ops/resize.py``: the same ``(n_out, n_in)`` matrices,
+applied as two matmuls (rows, then columns) accumulated in float32, with the
+intermediate rounded to the working dtype after the first pass as the JAX
+``_apply_separable`` does.
+
+- ``align_corners=True`` is ``nn.Upsample(mode='bilinear',
+  align_corners=True)``, the UNet decoder's upsample.
+- ``align_corners=False`` is ``F.interpolate(mode='bilinear')``, used to
+  resize masks back to the original image size.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=256)
+def _linear_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
+    """(n_out, n_in) row-stochastic linear-interpolation matrix."""
+    a = np.zeros((n_out, n_in), dtype=np.float32)
+    if n_out == 1:
+        # align_corners=True maps the single output to source 0; the
+        # half-pixel convention maps it to the (clamped) center.
+        src = np.array([0.0 if align_corners else max(0.0, 0.5 * n_in - 0.5)])
+    elif align_corners:
+        src = np.arange(n_out) * (n_in - 1) / (n_out - 1)
+    else:
+        src = np.clip((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0.0, n_in - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    frac = (src - lo).astype(np.float32)
+    rows = np.arange(n_out)
+    a[rows, lo] += 1.0 - frac
+    a[rows, hi] += frac
+    return a
+
+
+@functools.lru_cache(maxsize=256)
+def linear_taps(n_in: int, n_out: int, align_corners: bool = True):
+    """The two non-zero entries of each row of ``_linear_matrix``:
+    ``(lo, hi, w_lo, w_hi)`` with ``w_hi = 0`` where ``lo == hi``.  The
+    weights are the matrix's own float32 values, so a two-tap blend equals
+    the matrix row product."""
+    a = _linear_matrix(n_in, n_out, align_corners)
+    lo = np.argmax(a != 0, axis=1).astype(np.int32)
+    hi = np.minimum(lo + 1, n_in - 1).astype(np.int32)
+    rows = np.arange(n_out)
+    w_lo = a[rows, lo]
+    w_hi = np.where(hi != lo, a[rows, hi], 0.0).astype(np.float32)
+    return lo, hi, w_lo, w_hi
+
+
+def _apply_separable(x: torch.Tensor, ah: np.ndarray,
+                     aw: np.ndarray) -> torch.Tensor:
+    """Rows, then columns, of a floating NHWC or HWC tensor; the matrices are
+    rounded to x's dtype, the products summed in float32, and the row pass
+    rounded to x's dtype before the column pass."""
+    dtype = x.dtype
+    ah_t = torch.from_numpy(ah).to(x.device, dtype).float()
+    aw_t = torch.from_numpy(aw).to(x.device, dtype).float()
+    lead = "b" if x.ndim == 4 else ""
+    if x.ndim not in (3, 4):
+        raise ValueError(f"rank {x.ndim} not supported")
+    y = torch.einsum(f"ph,{lead}hwc->{lead}pwc", ah_t, x.float()).to(dtype).float()
+    return torch.einsum(f"qw,{lead}pwc->{lead}pqc", aw_t, y).to(dtype)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw,
+                    align_corners: bool = False) -> torch.Tensor:
+    h_out, w_out = int(out_hw[0]), int(out_hw[1])
+    h_in, w_in = ((x.shape[1], x.shape[2]) if x.ndim == 4
+                  else (x.shape[0], x.shape[1]))
+    return _apply_separable(x, _linear_matrix(h_in, h_out, align_corners),
+                            _linear_matrix(w_in, w_out, align_corners))
+
+
+def upsample2x_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """The UNet decoder's ``Upsample(scale_factor=2, align_corners=True)``,
+    NHWC."""
+    return resize_bilinear(x, (2 * x.shape[1], 2 * x.shape[2]),
+                           align_corners=True)

@@ -1,9 +1,17 @@
 #!/usr/bin/env python3
 """GPU smoke run of egm_unet_torch: builds the CUDA kernels from
 ``egm_unet_torch/csrc``, holds each against its plain PyTorch version at the
-shapes the serving path gives it, serves a few requests through
-``serving.Predictor`` at the published width (base_c 32, 2 classes, bf16,
-batch 8) and checks the card against the CPU on a small bucket.
+shapes the main paths give it, and drives two main paths at full width:
+
+- serving: a few requests through ``serving.Predictor`` (EGM-UNet A+B+C,
+  base_c 32, 2 classes, bf16, batch 8);
+- fusion: 16 images and two text prompts through the text-prompted pipeline
+  of ``cli/predict_clipseg.py`` (CLIPSeg rd64 over ViT-B/16 at 352 px with the
+  248-token Long-CLIP text tower, batch 32, plus EGM-UNet at 565 px, batch 16,
+  both bf16, fused as ``clip + 0.5 * unet``).
+
+It then checks the card against the CPU on small inputs, for the UNets and for
+a small CLIPSeg.
 
     python3 chip_smoke.py
 
@@ -31,12 +39,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from egm_unet_torch.cli.eval_clipseg import fused_masks
 from egm_unet_torch.data.synthetic import synthetic_tp_sample
 from egm_unet_torch.data.transforms import normalize, resize_short_side
 from egm_unet_torch.models import create_model
+from egm_unet_torch.models.clip.model import VIT_B16, CLIPConfig
+from egm_unet_torch.models.clipseg import CLIPDensePredT
+from egm_unet_torch.models.registry import init_weights
 from egm_unet_torch.nn.attention import MCALayer
-from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU
-from egm_unet_torch.ops.cuda import (build, conv3x3, launch_counts, mca,
+from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU, cast_weights
+from egm_unet_torch.ops.cuda import (build, conv3x3, csa, launch_counts, mca,
                                      reset_launch_counts, upconv)
 from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_of
 
@@ -46,13 +58,24 @@ BUCKET = (576, 768)  # the 565x752 requests' bucket
 BATCH = 8
 BASE_C = 32
 SEED = 0
-PER_FORWARD = {"mca_fused": 4, "conv3x3_gemm": 18, "up_concat_conv": 4}
+# kernel launches of one EGM-UNet forward and of one CLIPSeg forward
+PER_FORWARD = {"mca_fused": 4, "conv3x3_gemm": 18, "up_concat_conv": 4,
+               "csa_attention": 0}
+PER_CLIPSEG_FORWARD = {"mca_fused": 0, "conv3x3_gemm": 0, "up_concat_conv": 0,
+                       "csa_attention": 10}  # blocks 0..9; 10 and 11 are not needed
 SOURCES = {"mca_fused": "egm_unet_torch/csrc/mca_fused.cu",
            "conv3x3_gemm": "egm_unet_torch/csrc/conv3x3.cu",
-           "up_concat_conv": "egm_unet_torch/csrc/up_concat_conv.cu"}
+           "up_concat_conv": "egm_unet_torch/csrc/up_concat_conv.cu",
+           "csa_attention": "egm_unet_torch/csrc/csa_attention.cu"}
 REPLACES = {"mca_fused": "egm_unet_tpu/ops/pallas/mca.py:133",
             "conv3x3_gemm": "egm_unet_tpu/ops/pallas/conv3x3.py:306",
-            "up_concat_conv": "egm_unet_tpu/ops/pallas/upconv.py:136"}
+            "up_concat_conv": "egm_unet_tpu/ops/pallas/upconv.py:136",
+            "csa_attention": "egm_unet_tpu/ops/pallas/csa.py:125"}
+# the fusion path, the defaults of cli/predict_clipseg.py
+CLIP_SIZE, CLIP_BATCH, UNET_BATCH, BASE_SIZE, ALPHA = 352, 32, 16, 565, 0.5
+N_FUSION_IMAGES = 16
+CSA_PATH_SHAPE = (CLIP_BATCH, (CLIP_SIZE // 16) ** 2 + 1, 768, 12)  # B, S, D, heads
+SOT, EOT = 49406, 49407
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16
 # tensor-core and float32 CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
@@ -210,6 +233,24 @@ def site_call(site, dtype=None):
             2.0 * out_numel * 9 * x.shape[-1], x.dtype)
 
 
+def csa_call(shape, dtype, seed: int = SEED):
+    """The K6 call at ``shape`` = (B, S, D, heads) on seeded inputs, in the
+    form ``kernel_record`` takes.  The library yardstick is two
+    ``scaled_dot_product_attention`` calls and an add, timed only."""
+    b, s_, d, h = shape
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = [(torch.randn(b, s_, d, generator=gen) * sc).to(dtype).cuda()
+               for sc in (1.5, 1.0, 1.0)]
+    heads = lambda t: t.view(b, s_, h, d // h).transpose(1, 2)
+
+    def library():
+        return (F.scaled_dot_product_attention(heads(q), heads(q), heads(v))
+                + F.scaled_dot_product_attention(heads(k), heads(k), heads(v)))
+    return ("csa_attention", ("csa", (b, s_, d), h, str(dtype)),
+            lambda: csa.csa_attention(q, k, v, h), lambda: csa.csa_plain(q, k, v, h),
+            library, 4 * nbytes(q), 6.0 * b * h * s_ * s_ * (d // h), dtype)
+
+
 def compare(kernel_fn, plain_fn, dtype) -> tuple:
     got = kernel_fn()
     torch.cuda.synchronize()
@@ -256,7 +297,8 @@ def phase_kernels(pred, images) -> list:
     counts = {}
     for rec in seen.values():
         counts[rec["call"][0]] = counts.get(rec["call"][0], 0) + rec["count"]
-    check(counts == PER_FORWARD, f"kernel sites per forward {counts} != {PER_FORWARD}")
+    want = {k: n for k, n in PER_FORWARD.items() if n}
+    check(counts == want, f"kernel sites per forward {counts} != {want}")
 
     records = [kernel_record(rec["site"], rec["call"], 10,
                              sites_per_forward=rec["count"]) for rec in seen.values()]
@@ -268,6 +310,12 @@ def phase_kernels(pred, images) -> list:
                 for rec in firsts.values()]
     del sites, seen, firsts
     torch.cuda.empty_cache()
+    # K6 at the CLIPSeg forward's shape: ten sites in bf16, and once in float32
+    site = "clip.visual.resblock0..9"
+    records.append(kernel_record(site, csa_call(CSA_PATH_SHAPE, torch.bfloat16), 10,
+                                 sites_per_forward=PER_CLIPSEG_FORWARD["csa_attention"]))
+    records.append(kernel_record(site, csa_call(CSA_PATH_SHAPE, torch.float32), 5))
+    torch.cuda.empty_cache()
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_kernels.jsonl", "w") as f:
         for r in records:
@@ -277,7 +325,8 @@ def phase_kernels(pred, images) -> list:
 
 def phase_edges() -> None:
     """Each kernel against its plain version at small odd shapes: partial
-    pixel and channel tiles, C=3, every output-width tile config."""
+    pixel and channel tiles, C=3, every output-width tile config; for K6,
+    sequence lengths off the 64-row tiles and every head-width template."""
     gen = torch.Generator().manual_seed(SEED)
     rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).cuda()
     worst = {}
@@ -303,6 +352,10 @@ def phase_edges() -> None:
                           lambda a=x2, b=x1, k=k, s=bias: upconv.up_concat_conv(a, b, k, s),
                           lambda a=x2, b=x1, k=k, s=bias: upconv.up_concat_conv_plain(
                               a, b, k, s)))
+        for shape in ((2, 10, 32, 4), (1, 64, 64, 1), (1, 17, 64, 2),
+                      (3, 197, 768, 12), (2, 70, 200, 2)):  # head widths 8..100
+            call = csa_call(shape, dtype, seed=SEED + 1)
+            cases.append((call[0], call[2], call[3]))
         for name, kfn, pfn in cases:
             err, tol, _ = compare(kfn, pfn, dtype)
             check(err <= tol, f"{name} {dtype} edge case: max abs err {err} > tol {tol}")
@@ -348,18 +401,21 @@ def phase_serving(pred, dev) -> dict:
         "card": dev["nvidia_smi"],
         "foreground_share": float(np.mean([mk.mean() for mk in masks]))}
     emit(rec)
-    phase_profile(pred, x)
+    phase_profile("profile", lambda: pred.forward(x), "serving_profile.txt",
+                  {"conv3x3_gemm+up_concat_conv": "igemm3x3_kernel",
+                   "mca_fused": "mca_fused_kernel"})
     return rec
 
 
-def phase_profile(pred, x) -> None:
-    """Device time of one serving forward by kernel, from torch.profiler."""
+def phase_profile(phase: str, forward, out_name: str, patterns: dict) -> dict:
+    """Device time of one call of ``forward`` by kernel, from torch.profiler;
+    ``patterns`` names the kernels whose time is summed by substring."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.forward(x)
+        forward()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -371,50 +427,171 @@ def phase_profile(pred, x) -> None:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    by_kernel = {"conv3x3_gemm+up_concat_conv": sum(
-        r[0] for r in rows if "igemm3x3_kernel" in r[2]),
-        "mca_fused": sum(r[0] for r in rows if "mca_fused_kernel" in r[2])}
+    by_kernel = {name: sum(r[0] for r in rows if pat in r[2])
+                 for name, pat in patterns.items()}
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "serving_profile.txt").write_text(
-        "\n".join(f"{ms:10.3f} ms {n:5d}x  {k}" for ms, n, k in rows) + "\n")
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_ms": device_ms,
-          "device_idle_share": None if not rows else max(0.0, 1 - device_ms / wall_ms),
-          "by_kernel_ms": by_kernel,
-          "top": [{"ms": ms, "calls": n, "name": k[:80]} for ms, n, k in rows[:8]]})
+    (OUT_DIR / out_name).write_text(
+        f"wall {wall_ms:.3f} ms, device {device_ms:.3f} ms\n"
+        + "\n".join(f"{ms:10.3f} ms {n:5d}x  {k}" for ms, n, k in rows) + "\n")
+    rec = {"phase": phase, "wall_ms": wall_ms, "device_ms": device_ms,
+           "device_idle_share": None if not rows else max(0.0, 1 - device_ms / wall_ms),
+           "by_kernel_ms": by_kernel,
+           "top": [{"ms": ms, "calls": n, "name": k[:80]} for ms, n, k in rows[:8]]}
+    emit(rec)
+    return rec
 
 
-def phase_card_vs_cpu() -> dict:
-    model = create_model("egm_unet", base_c=BASE_C, num_classes=2,
-                         generator=torch.Generator().manual_seed(SEED)).eval()
+def prompt_tokens(lengths=(3, 80)) -> torch.Tensor:
+    """Seeded token ids framed like tokenized prompts: SOT, ids below SOT,
+    EOT (the highest id), zero padding; the lengths of the predict CLI's
+    default prompts ("background" and the long tactile-paving description)."""
+    gen = torch.Generator().manual_seed(SEED)
+    tok = torch.zeros((len(lengths), VIT_B16.context_length), dtype=torch.int64)
+    for i, n in enumerate(lengths):
+        tok[i, 0] = SOT
+        tok[i, 1:n - 1] = torch.randint(1, SOT, (n - 2,), generator=gen)
+        tok[i, n - 1] = EOT
+    return tok
+
+
+def phase_fusion(unet, dev) -> dict:
+    """The text-prompted fusion path at full width, through the function the
+    predict CLI calls."""
+    t0 = time.perf_counter()
+    clipseg = CLIPDensePredT(clip_cfg=VIT_B16, reduce_dim=64, extract_layers=(3, 6, 9))
+    init_weights(clipseg, torch.Generator().manual_seed(SEED))
+    clipseg = cast_weights(clipseg.to("cuda"), torch.bfloat16).eval()
+    build_s = time.perf_counter() - t0
+
+    tokens = prompt_tokens().cuda()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    cond = clipseg.compute_conditional(tokens).float()
+    torch.cuda.synchronize()
+    text_launches = launch_counts()
+    check(not any(text_launches.values()), f"the text tower launched {text_launches}")
+    check(tuple(cond.shape) == (2, VIT_B16.embed_dim) and bool(torch.isfinite(cond).all()),
+          "text conditionals are not finite [2, 512]")
+    text_ms = time_ms(lambda: clipseg.compute_conditional(tokens), reps=5, warm=1)
+
+    raws = [synthetic_tp_sample(100 + i)[0] for i in range(N_FUSION_IMAGES)]
+    info = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    masks = fused_masks(clipseg, unet, cond, raws, ALPHA, base_size=BASE_SIZE,
+                        clip_size=CLIP_SIZE, clip_batch=CLIP_BATCH,
+                        unet_batch=UNET_BATCH, device="cuda", info=info)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+
+    expect = {k: PER_CLIPSEG_FORWARD[k] * info["clipseg_forwards"]
+              + PER_FORWARD[k] * info["unet_forwards"] for k in PER_FORWARD}
+    check(info["clipseg_forwards"] == -(-N_FUSION_IMAGES * 2 // CLIP_BATCH)
+          and info["unet_forwards"] >= 1, f"forwards {info}")
+    check(launches == expect, f"fusion launches {launches} != {expect} for {info}")
+    check(info["logits_finite"], "fusion logits are not finite")
+    check(len(masks) == N_FUSION_IMAGES, f"{len(masks)} masks")
+    for raw, mask in zip(raws, masks):
+        check(mask.shape == raw.shape[:2], f"mask {mask.shape} for image {raw.shape}")
+        check(mask.dtype == np.uint8 and set(np.unique(mask)) <= {0, 255},
+              "mask values not in {0, 255}")
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    x = torch.randn(CLIP_BATCH, CLIP_SIZE, CLIP_SIZE, 3, generator=gen).cuda()
+    conds = cond.repeat(CLIP_BATCH // 2, 1)
+    (logits,) = clipseg(x, conds)
+    check(tuple(logits.shape) == (CLIP_BATCH, CLIP_SIZE, CLIP_SIZE, 1)
+          and logits.dtype == torch.float32 and bool(torch.isfinite(logits).all()),
+          f"CLIPSeg logits {tuple(logits.shape)} {logits.dtype} not finite float32")
+    ms = time_ms(lambda: clipseg(x, conds), reps=5, warm=1)
+    rec = {"phase": "fusion", "images": N_FUSION_IMAGES, "prompts": 2,
+           "prompt_tokens": [3, 80], "alpha": ALPHA, "dtype": "bfloat16",
+           "clip_size": CLIP_SIZE, "clip_batch": CLIP_BATCH, "unet_batch": UNET_BATCH,
+           "base_size": BASE_SIZE, **info, "launches": launches,
+           "launches_text_tower": text_launches,
+           "launches_per_clipseg_forward": PER_CLIPSEG_FORWARD["csa_attention"],
+           "clipseg_ms_per_batch": ms, "clipseg_img_per_s": CLIP_BATCH / ms * 1e3,
+           "text_tower_ms": text_ms, "pipeline_wall_s": wall,
+           "model_build_s": build_s, "card": dev["nvidia_smi"],
+           "foreground_share": float(np.mean([(mk > 0).mean() for mk in masks]))}
+    emit(rec)
+    phase_profile("clipseg_profile", lambda: clipseg(x, conds), "clipseg_profile.txt",
+                  {"csa_attention": "csa_kernel"})
+    return rec
+
+
+def phase_card_vs_cpu() -> None:
+    """The same float32 weights and inputs on the card (kernels) and on the
+    CPU (plain versions): the two UNets of the fusion CLIs at 128x128, and a
+    small CLIPSeg with 64-wide heads."""
     imgs = []
     for i in range(2):
         img, _ = synthetic_tp_sample(10 + i, 160, 128)
         imgs.append(normalize(resize_short_side(img, None, 128)[0]))
     x = torch.from_numpy(np.stack(imgs)[:, :128, :128].copy())  # 2 x 128 x 128 x 3
-    with torch.inference_mode():
+    for name in ("egm_unet", "grfb_unet"):
+        model = create_model(name, base_c=BASE_C, num_classes=2,
+                             generator=torch.Generator().manual_seed(SEED)).eval()
         cpu = model(x)["out"]
         gpu_model = model.to("cuda")
         reset_launch_counts()
         gpu = gpu_model(x.to("cuda"))["out"].cpu()
+        launches = launch_counts()
+        if name == "egm_unet":
+            check(launches == PER_FORWARD, f"float32 forward launches {launches}")
+        else:  # no MCA; the GRFB blocks hold no plain 3x3 conv of their own
+            check(launches["conv3x3_gemm"] >= 14 and launches["up_concat_conv"] == 4
+                  and launches["mca_fused"] == 0, f"grfb_unet launches {launches}")
+        card_vs_cpu_record(name, list(x.shape), gpu, cpu, launches, masks=True)
+
+    cfg = CLIPConfig(embed_dim=64, image_resolution=64, vision_layers=3,
+                     vision_width=128, vision_patch_size=16, context_length=32,
+                     vocab_size=512, transformer_width=64, transformer_heads=1,
+                     transformer_layers=2, long_clip=True)
+    seg = CLIPDensePredT(clip_cfg=cfg, reduce_dim=32, extract_layers=(1, 2))
+    init_weights(seg, torch.Generator().manual_seed(SEED)).eval()
+    gen = torch.Generator().manual_seed(SEED + 3)
+    img = torch.randn(2, 96, 96, 3, generator=gen)  # a resampled 6x6 positional grid
+    tok = torch.zeros((2, 32), dtype=torch.int64)
+    tok[:, :5] = torch.randint(1, 500, (2, 5), generator=gen)
+    tok[:, 5] = 511
+    (cpu,) = seg(img, tok)
+    seg = seg.to("cuda")
+    reset_launch_counts()
+    (gpu,) = seg(img.cuda(), tok.cuda())
     launches = launch_counts()
-    check(launches == PER_FORWARD, f"float32 forward launches {launches}")
+    check(launches["csa_attention"] == 3, f"small CLIPSeg launches {launches}")
+    card_vs_cpu_record("clipseg_small", list(img.shape), gpu.cpu(), cpu, launches,
+                       masks=False)
+
+
+def card_vs_cpu_record(name, shape, gpu, cpu, launches, masks: bool) -> None:
     diff = (gpu - cpu).abs().max().item()
     scale = cpu.abs().max().item()
-    agree = (gpu.argmax(-1) == cpu.argmax(-1)).float().mean().item()
     tol = 1e-3 * max(scale, 1.0)
-    rec = {"phase": "card_vs_cpu", "shape": list(x.shape), "dtype": "float32",
+    rec = {"phase": "card_vs_cpu", "model": name, "shape": shape, "dtype": "float32",
            "logits_max_abs_diff": diff, "logits_max_abs": scale, "tol": tol,
-           "mask_agreement": agree, "launches": launches}
+           "launches": launches}
+    if masks:
+        rec["mask_agreement"] = (gpu.argmax(-1) == cpu.argmax(-1)).float().mean().item()
     emit(rec)
-    check(bool(torch.isfinite(gpu).all()), "card logits are not finite")
-    check(diff <= tol, f"card vs CPU logits differ by {diff} > {tol}")
-    check(agree >= 0.99, f"card vs CPU mask agreement {agree} < 0.99")
-    return rec
+    check(bool(torch.isfinite(gpu).all()), f"{name}: card logits are not finite")
+    check(diff <= tol, f"{name}: card vs CPU logits differ by {diff} > {tol}")
+    if masks:
+        check(rec["mask_agreement"] >= 0.99,
+              f"{name}: card vs CPU mask agreement {rec['mask_agreement']} < 0.99")
 
 
-def summary(records, launches) -> list:
-    """Per kernel: times summed over one forward's launches at the bucket
-    (each path shape's time times its sites per forward)."""
+def summary(records, serving_launches, fusion_launches) -> list:
+    """Per kernel: times summed over one forward's launches at the path shape
+    (each shape's time times its sites per forward); launches from the two
+    main-path runs, whose counts were reset just before each."""
+    per = {name: f"one EGM-UNet forward, batch {BATCH}, {BUCKET[0]}x{BUCKET[1]}, bf16"
+           for name in PER_FORWARD}
+    per["csa_attention"] = (f"one CLIPSeg forward, batch {CLIP_BATCH}, "
+                            f"{CSA_PATH_SHAPE[1]} tokens, bf16")
     out = []
     for name in PER_FORWARD:
         mine = [r for r in records if r["name"] == name]
@@ -422,16 +599,19 @@ def summary(records, launches) -> list:
         per_fwd = lambda key: sum(r[key] * r["sites_per_forward"] for r in path)
         t_bytes = sum(r["bound_ms"] * r["sites_per_forward"] for r in path
                       if r["bound_by"] == "bytes")
+        launches = serving_launches[name] + fusion_launches[name]
+        check(launches > 0, f"{name} was not launched on a main path")
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": launches,
+            "launches_serving": serving_launches[name],
+            "launches_fusion": fusion_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": per_fwd("kernel_ms"), "plain_ms": per_fwd("plain_ms"),
             "bound_ms": per_fwd("bound_ms"),
             "bound_by": "bytes" if t_bytes >= per_fwd("bound_ms") / 2 else "operations",
             "library_ms": None if path[0]["library_ms"] is None else per_fwd("library_ms"),
-            "per": f"one forward, batch {BATCH}, {BUCKET[0]}x{BUCKET[1]}, bf16",
-            "shapes": len(path)})
+            "per": per[name], "shapes": len(path)})
     return out
 
 
@@ -444,8 +624,9 @@ def main() -> None:
     records = phase_kernels(pred, images)
     phase_edges()
     serving = phase_serving(pred, dev)
+    fusion = phase_fusion(pred.model, dev)
     phase_card_vs_cpu()
-    kernels = summary(records, serving["launches"])
+    kernels = summary(records, serving["launches"], fusion["launches"])
     print(dev["nvidia_smi"])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

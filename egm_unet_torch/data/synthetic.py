@@ -1,6 +1,7 @@
 """Synthetic tactile-paving-like images for smoke tests (port of
-``egm_unet_tpu/data/synthetic.py::synthetic_tp_sample``): RGB street-like
-noise with a slanted band of bright-yellow stripes as foreground."""
+``synthetic_tp_sample`` and ``SyntheticTPDataset`` of
+``egm_unet_tpu/data/synthetic.py``): RGB street-like noise with a slanted band
+of bright-yellow stripes as foreground."""
 
 from __future__ import annotations
 
@@ -25,3 +26,23 @@ def synthetic_tp_sample(index: int, h: int = 565, w: int = 752,
         0, 255).astype(np.uint8)
     mask[band] = 1
     return img, mask
+
+
+class SyntheticTPDataset:
+    """Duck-typed like ``DriveDataset``: ``ds[i]`` is ``(uint8 HWC image,
+    uint8 HW mask)``, or what ``transforms`` makes of them."""
+
+    def __init__(self, n: int = 32, transforms=None, h: int = 565, w: int = 752,
+                 seed0: int = 1000):
+        self.n, self.transforms, self.h, self.w = n, transforms, h, w
+        self.names = [f"synth{i:04d}" for i in range(n)]
+        self.seed0 = seed0
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx: int):
+        img, mask = synthetic_tp_sample(idx, self.h, self.w, seed0=self.seed0)
+        if self.transforms is not None:
+            return self.transforms(img, mask)
+        return img, mask

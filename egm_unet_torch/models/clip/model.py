@@ -1,0 +1,339 @@
+"""CLIP (Long-CLIP text tower, ViT with CSA), port of
+``egm_unet_tpu/models/clip/model.py``.
+
+Activations are [B, S, D] and images NHWC, as in the JAX package.  Module and
+parameter names mirror the flax tree (``resblock3.in_proj.kernel``,
+``ln_1.scale``, ...) so ``utils/from_flax.py`` maps one onto the other.
+
+Compute dtype: the ``Dense`` and patch-conv weights carry it
+(``nn.layers.cast_weights``).  LayerNorm runs in float32 with float32
+parameters whatever the compute dtype, and the embeddings, positional tables
+and the two output projections stay float32 and are applied in float32 or
+cast where they are used, as the JAX modules do.  ``model.to(torch.bfloat16)``
+would round those parameters too; ``LayerNormF32`` raises on it.
+
+CSA attention goes through ``ops.cuda.csa.csa_attention``: the CUDA kernel for
+CUDA tensors, its plain version for CPU tensors.  Attention that returns its
+weights or carries a multiplicative mask goes through
+``ops.attention.multi_head_attention``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from egm_unet_torch.nn.layers import CoreConv, Dense, LayerNorm
+from egm_unet_torch.ops.attention import multi_head_attention
+from egm_unet_torch.ops.cuda.csa import csa_attention
+from egm_unet_torch.ops.resize import resize_bicubic, resize_nearest
+
+KEEP_LEN = 20  # Long-CLIP keeps the first 20 positions verbatim
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    embed_dim: int = 512
+    image_resolution: int = 224
+    vision_layers: int = 12
+    vision_width: int = 768
+    vision_patch_size: int = 16
+    context_length: int = 248  # Long-CLIP default
+    vocab_size: int = 49408
+    transformer_width: int = 512
+    transformer_heads: int = 8
+    transformer_layers: int = 12
+    long_clip: bool = True  # dual positional embeddings
+
+    @property
+    def vision_heads(self) -> int:
+        return self.vision_width // 64
+
+
+VIT_B16 = CLIPConfig()
+VIT_B32 = dataclasses.replace(VIT_B16, vision_patch_size=32)
+
+
+def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+class LayerNormF32(LayerNorm):
+    """The float32 LayerNorm with its result cast back to the input's dtype."""
+
+    flax_child = "LayerNorm_0"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x).to(x.dtype)
+
+
+class QuickGELU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(1.702 * x)
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN transformer block with one fused ``in_proj`` split in three
+    along the last axis."""
+
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.ln_1 = LayerNormF32(width)
+        self.in_proj = Dense(width, 3 * width)
+        self.out_proj = Dense(width, width)
+        self.ln_2 = LayerNormF32(width)
+        self.c_fc = Dense(width, 4 * width)
+        self.c_proj = Dense(4 * width, width)
+        self.gelu = QuickGELU()
+
+    def forward(self, x, attn_bias=None, csa: bool = False,
+                return_weights: bool = False, mult_mask=None):
+        q, k, v = self.in_proj(self.ln_1(x)).chunk(3, dim=-1)
+        weights = None
+        if csa and not return_weights and mult_mask is None:
+            attn = csa_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 self.heads)
+        else:
+            attn = multi_head_attention(q, k, v, self.heads, csa=csa,
+                                        attn_bias=attn_bias, mult_mask=mult_mask,
+                                        return_weights=return_weights)
+            if return_weights:
+                attn, weights = attn
+        x = x + self.out_proj(attn)
+        x = x + self.c_proj(self.gelu(self.c_fc(self.ln_2(x))))
+        if return_weights:
+            return x, weights
+        return x
+
+
+class VisionTransformer(nn.Module):
+    """ViT with CSA in the last block (encode path) or in every block (dense
+    path)."""
+
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        self.cfg = cfg
+        w, p = cfg.vision_width, cfg.vision_patch_size
+        self.conv1 = CoreConv(3, w, p, stride=p, use_bias=False)
+        self.class_embedding = nn.Parameter(torch.zeros(w))
+        n_pos = (cfg.image_resolution // p) ** 2 + 1
+        self.positional_embedding = nn.Parameter(torch.zeros(n_pos, w))
+        self.ln_pre = LayerNormF32(w)
+        for i in range(cfg.vision_layers):
+            setattr(self, f"resblock{i}", ResidualAttentionBlock(w, cfg.vision_heads))
+        self.ln_post = LayerNormF32(w)
+        self.proj = nn.Parameter(torch.zeros(w, cfg.embed_dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        std = self.cfg.vision_width ** -0.5
+        normal_(self.class_embedding, std, generator)
+        normal_(self.positional_embedding, std, generator)
+        normal_(self.proj, std, generator)
+
+    def _pos_embedding(self, n_tokens: int, grid_hw: Tuple[int, int]) -> torch.Tensor:
+        """The positional table, its patch grid resampled (bicubic, half-pixel
+        centres) for inputs of another resolution."""
+        pos = self.positional_embedding
+        n = pos.shape[0] - 1
+        if n_tokens == n:
+            return pos
+        side = int(math.sqrt(n))
+        grid = resize_bicubic(pos[1:].reshape(side, side, -1), grid_hw,
+                              align_corners=False)
+        return torch.cat([pos[:1], grid.reshape(-1, pos.shape[-1])], dim=0)
+
+    def forward(self, x, *, csa: bool = True, extract_layers: Sequence[int] = (),
+                return_all: bool = False, dense: bool = False, mask=None,
+                return_affinities: bool = False, pooled: bool = True):
+        """``x``: NHWC image.  ``mask``: ``(mask_type, seg[B, h, w])``, the
+        visual-prompt attention mask.  With ``pooled=False`` (and layers to
+        extract) the pass stops after the last extracted block and returns
+        None for the pooled embedding."""
+        cfg = self.cfg
+        p = cfg.vision_patch_size
+        b, h, w, _ = x.shape
+        grid_hw = (h // p, w // p)
+        extract_layers = tuple(extract_layers)
+
+        patches = self.conv1(x.to(self.conv1.kernel.dtype))
+        tokens = patches.reshape(b, grid_hw[0] * grid_hw[1], cfg.vision_width)
+        cls = self.class_embedding.to(tokens.dtype).expand(b, 1, cfg.vision_width)
+        tokens = torch.cat([cls, tokens], dim=1)
+        pos = self._pos_embedding(tokens.shape[1] - 1, grid_hw)
+        tokens = self.ln_pre(tokens + pos.to(tokens.dtype)[None])
+
+        mult_mask = None
+        if mask is not None:
+            # the visual-prompt seg at the patch grid, nearest as torch's
+            # F.interpolate default
+            mask_type, seg = mask
+            seg = resize_nearest(seg.float()[..., None], grid_hw, mode="torch")
+            mult_mask = (mask_type, seg.reshape(b, grid_hw[0] * grid_hw[1]))
+
+        activations, affinities = [], []
+        n_layers = cfg.vision_layers
+        if extract_layers and not pooled:
+            n_layers = max(extract_layers) + 1
+        for i in range(n_layers):
+            use_csa = csa and (dense or i == cfg.vision_layers - 1)
+            want_aff = return_affinities and i in extract_layers
+            out = getattr(self, f"resblock{i}")(tokens, csa=use_csa,
+                                                mult_mask=mult_mask,
+                                                return_weights=want_aff)
+            if want_aff:
+                tokens, aff = out
+                affinities.append(aff)  # [B, heads, S, S]
+            else:
+                tokens = out
+            if i in extract_layers:
+                activations.append(tokens)
+
+        emb = None
+        if pooled or not extract_layers:
+            emb = self.ln_post(tokens if return_all else tokens[:, 0, :])
+            emb = torch.matmul(emb.float(), self.proj.float()).to(tokens.dtype)
+
+        if extract_layers and return_affinities:
+            return emb, activations, affinities
+        if extract_layers:
+            return emb, activations
+        return emb
+
+
+class Embed(nn.Module):
+    """Embedding table ``embedding`` [vocab, width], float32 lookups."""
+
+    def __init__(self, vocab: int, width: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(vocab, width))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        normal_(self.embedding, 0.02, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids.long(), self.embedding)
+
+
+class CLIP(nn.Module):
+    """Dual-tower CLIP with the Long-CLIP text side (two positional tables)."""
+
+    def __init__(self, cfg: CLIPConfig = VIT_B16):
+        super().__init__()
+        self.cfg = cfg
+        if isinstance(cfg.vision_layers, (tuple, list)):
+            raise NotImplementedError(
+                "the ModifiedResNet tower (a tuple vision_layers) is not ported "
+                "yet (ROADMAP.md, queue 1: models/clip/resnet.py)")
+        self.visual = VisionTransformer(cfg)
+        tw = cfg.transformer_width
+        self.token_embedding = Embed(cfg.vocab_size, tw)
+        self.positional_embedding = nn.Parameter(torch.zeros(cfg.context_length, tw))
+        if cfg.long_clip:
+            self.positional_embedding_res = nn.Parameter(
+                torch.zeros(cfg.context_length, tw))
+        for i in range(cfg.transformer_layers):
+            setattr(self, f"text_resblock{i}",
+                    ResidualAttentionBlock(tw, cfg.transformer_heads))
+        self.ln_final = LayerNormF32(tw)
+        self.text_projection = nn.Parameter(torch.zeros(tw, cfg.embed_dim))
+        self.logit_scale = nn.Parameter(torch.zeros(()))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        normal_(self.positional_embedding, 0.01, generator)
+        if self.cfg.long_clip:
+            normal_(self.positional_embedding_res, 0.01, generator)
+        normal_(self.text_projection, self.cfg.transformer_width ** -0.5, generator)
+        with torch.no_grad():
+            self.logit_scale.fill_(math.log(1 / 0.07))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype, carried by the matmul weights."""
+        return self.visual.conv1.kernel.dtype
+
+    def _text_pos(self) -> torch.Tensor:
+        if not self.cfg.long_clip:
+            return self.positional_embedding
+        return torch.cat([self.positional_embedding[:KEEP_LEN],
+                          self.positional_embedding_res[KEEP_LEN:]], dim=0)
+
+    def _causal_bias(self, device) -> torch.Tensor:
+        n = self.cfg.context_length
+        return torch.triu(torch.full((n, n), float("-inf"), device=device),
+                          diagonal=1)
+
+    def encode_text(self, text: torch.Tensor, pool: bool = True) -> torch.Tensor:
+        """``text``: [N, context_length] token ids."""
+        dtype = self.dtype
+        x = self.token_embedding(text).to(dtype)
+        x = x + self._text_pos().to(dtype)[None]
+        bias = self._causal_bias(x.device)
+        for i in range(self.cfg.transformer_layers):
+            x = getattr(self, f"text_resblock{i}")(x, attn_bias=bias)
+        x = self.ln_final(x)
+        if not pool:
+            return x
+        eot = text.argmax(dim=-1)  # EOT has the highest token id
+        pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+        return torch.matmul(pooled.float(), self.text_projection.float()).to(dtype)
+
+    def encode_image(self, image, csa: bool = True, return_all: bool = False):
+        return self.visual(image, csa=csa, return_all=return_all)
+
+    def visual_forward_dense(self, image, extract_layers: Sequence[int],
+                             pooled: bool = True):
+        """Dense ViT pass with per-layer activation extraction and CSA in
+        every block, the CLIPSeg encoder contract."""
+        return self.visual(image, csa=True, dense=True,
+                           extract_layers=extract_layers, pooled=pooled)
+
+    def forward(self, image, text):
+        """Contrastive logits ``(logits_per_image, logits_per_text)``."""
+        img = self.encode_image(image)
+        txt = self.encode_text(text)
+        img = img / torch.linalg.norm(img, dim=-1, keepdim=True)
+        txt = txt / torch.linalg.norm(txt, dim=-1, keepdim=True)
+        scale = torch.exp(self.logit_scale)
+        logits_per_image = scale * img @ txt.T
+        return logits_per_image, logits_per_image.T
+
+
+def get_attn(clip_module: CLIP, image, layer: str = "final", csa: bool = True):
+    """Attention maps for visualisation: ``'final'`` returns the last block's
+    (optionally CSA) attention, ``'all'`` every layer's.  Both run standard
+    attention in the blocks before the last, the encode-path convention."""
+    if layer not in ("final", "all"):
+        raise ValueError("layer should be final or all")
+    n = clip_module.cfg.vision_layers
+    layers = [n - 1] if layer == "final" else list(range(n))
+    _, _, affinities = clip_module.visual(image, csa=csa, dense=False,
+                                          extract_layers=layers,
+                                          return_affinities=True)
+    return affinities if layer == "all" else affinities[0]
+
+
+def stretch_positional_embedding(pe: np.ndarray, keep_len: int = KEEP_LEN) -> np.ndarray:
+    """Long-CLIP's knowledge-preserving stretch 77 -> 4*77 - 3*keep_len = 248:
+    keep the first ``keep_len`` positions, interpolate the rest linearly four
+    times denser, extrapolate the tail linearly."""
+    length, dim = pe.shape
+    out = np.zeros((4 * length - 3 * keep_len, dim), pe.dtype)
+    out[:keep_len] = pe[:keep_len]
+    for i in range(length - 1 - keep_len):
+        out[4 * i + keep_len] = pe[i + keep_len]
+        out[4 * i + 1 + keep_len] = 3 * pe[i + keep_len] / 4 + pe[i + 1 + keep_len] / 4
+        out[4 * i + 2 + keep_len] = 2 * pe[i + keep_len] / 4 + 2 * pe[i + 1 + keep_len] / 4
+        out[4 * i + 3 + keep_len] = pe[i + keep_len] / 4 + 3 * pe[i + 1 + keep_len] / 4
+    d = pe[length - 1] - pe[length - 2]
+    base = 4 * length - 3 * keep_len
+    for j in range(4):
+        out[base - 4 + j] = pe[length - 1] + j * d / 4
+    return out

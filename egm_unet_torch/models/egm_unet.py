@@ -1,7 +1,8 @@
-"""EGM-UNet with the composable A/B/C ablation modules, BN folded (port of
-``egm_unet_tpu/models/egm_unet.py``).
+"""EGM-UNet / GRFB-UNet with the composable A/B/C ablation modules, BN folded
+(port of ``egm_unet_tpu/models/egm_unet.py``).
 
 - A ``block='edge'``: EdgeEnhancedGRFB after each encoder DoubleConv1.
+- A' ``block='grfb'``: the original GRFB block instead (GRFB-UNet baseline).
 - B ``use_rga``: RecursiveGatedAttention at the bottleneck.
 - C ``use_mca``: MCALayer between the two convs of each DoubleConv1.
 """
@@ -15,25 +16,24 @@ import torch.nn as nn
 
 from egm_unet_torch.models.unet import Up
 from egm_unet_torch.nn.attention import MCALayer, RecursiveGatedAttention
-from egm_unet_torch.nn.grfb import EdgeEnhancedGRFB
+from egm_unet_torch.nn.grfb import GRFB, EdgeEnhancedGRFB
 from egm_unet_torch.nn.layers import Conv, ConvBNReLU, DoubleConv
 from egm_unet_torch.ops.pooling import max_pool2d
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
-
-
 class DoubleConv1(nn.Module):
-    """Encoder stage: ConvBNReLU [-> MCALayer] -> ConvBNReLU [-> EGRFB]."""
+    """Encoder stage: ConvBNReLU [-> MCALayer] -> ConvBNReLU [-> EGRFB or
+    GRFB]."""
 
     def __init__(self, in_ch: int, features: int, block: Optional[str] = "edge",
                  use_mca: bool = True):
         super().__init__()
-        if block not in ("edge", None):
-            raise NotImplementedError(f"block={block!r} (GRFB) {_NOT_PORTED}")
+        if block not in ("edge", "grfb", None):
+            raise ValueError(f"unknown block {block!r}")
         self.conv1 = ConvBNReLU(in_ch, features)
         self.mca = MCALayer(features) if use_mca else None
         self.conv2 = ConvBNReLU(features, features)
         self.egrfb = EdgeEnhancedGRFB(features, features) if block == "edge" else None
+        self.grfb = GRFB(features, features) if block == "grfb" else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(x)
@@ -42,6 +42,8 @@ class DoubleConv1(nn.Module):
         x = self.conv2(x)
         if self.egrfb is not None:
             x = self.egrfb(x)
+        if self.grfb is not None:
+            x = self.grfb(x)
         return x
 
 

@@ -1,5 +1,6 @@
-"""Model registry: the seven EGM-UNet configurations of the JAX package's
-``models/registry.py``, BN folded."""
+"""Model registry: every configuration of the JAX package's
+``models/registry.py`` (vanilla UNet, the GRFB-UNet baseline, EGM-UNet and
+its A/B/C ablation grid), BN folded."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 import torch.nn as nn
 
 from egm_unet_torch.models.egm_unet import EGMUNet
+from egm_unet_torch.models.unet import UNet
 
 # name -> EGMUNet kwargs (block, use_rga, use_mca)
 MODEL_CONFIGS = {
@@ -19,8 +21,8 @@ MODEL_CONFIGS = {
     "egm_unet_ab": dict(block="edge", use_rga=True, use_mca=False),
     "egm_unet_ac": dict(block="edge", use_rga=False, use_mca=True),
     "egm_unet_bc": dict(block=None, use_rga=True, use_mca=True),
+    "grfb_unet": dict(block="grfb", use_rga=False, use_mca=False),
 }
-NOT_PORTED = ("unet", "grfb_unet")
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -34,19 +36,22 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def create_model(name: str = "egm_unet", num_classes: int = 2, base_c: int = 32,
-                 generator: Optional[torch.Generator] = None) -> EGMUNet:
+                 generator: Optional[torch.Generator] = None,
+                 bilinear: bool = True) -> nn.Module:
     """The BN-folded inference graph of ``name`` (the only graph ported; fold
     BN statistics with ``models.fold_bn.fold_bn_variables``).  Load weights
     with ``utils.from_flax.load_flax_variables``, or draw them from
-    ``generator``."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} needs the GRFB/UNet modules, which are not ported "
-            "yet (ROADMAP.md, queue 1)")
-    if name not in MODEL_CONFIGS:
+    ``generator``.  ``bilinear=False`` (``"unet"`` only) selects the
+    transposed-conv decoder."""
+    if name == "unet":
+        model = UNet(num_classes=num_classes, bilinear=bilinear, base_c=base_c)
+    elif name in MODEL_CONFIGS:
+        if not bilinear:
+            raise ValueError("the EGM-UNet family has the bilinear decoder only")
+        model = EGMUNet(num_classes=num_classes, base_c=base_c, **MODEL_CONFIGS[name])
+    else:
         raise ValueError(f"unknown model {name!r}; choose from "
-                         f"{[*MODEL_CONFIGS, *NOT_PORTED]}")
-    model = EGMUNet(num_classes=num_classes, base_c=base_c, **MODEL_CONFIGS[name])
+                         f"{['unet', *MODEL_CONFIGS]}")
     if generator is not None:
         init_weights(model, generator)
     return model

@@ -1,27 +1,81 @@
-"""The decoder stage ``Up`` (port of ``egm_unet_tpu/models/unet.py``)."""
+"""Vanilla UNet and its decoder stage ``Up``, BN folded (port of
+``egm_unet_tpu/models/unet.py``)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
 
-from egm_unet_torch.nn.layers import DoubleConv, pad_to_match
+from egm_unet_torch.nn.layers import Conv, DoubleConv, pad_to_match, uniform_
+from egm_unet_torch.ops.conv import conv_transpose2d_nonoverlap
+from egm_unet_torch.ops.pooling import max_pool2d
 from egm_unet_torch.ops.resize import upsample2x_bilinear_align_corners
 
 
 class Up(nn.Module):
-    """Bilinear (align_corners) 2x upsample of x1 + pad + concat([x2, x1])
-    + DoubleConv.  When x2 is exactly twice x1's size (every bucketed serving
-    shape) the upsample, concat and first conv are one ``up_concat_conv``
-    launch; otherwise the upsampled x1 is padded to x2 first."""
+    """Upsample x1 + pad + concat([x2, x1]) + DoubleConv.
 
-    def __init__(self, in1: int, in2: int, features: int):
+    ``bilinear=True``: 2x bilinear (align_corners) upsample.  When x2 is
+    exactly twice x1's size (every bucketed serving shape) the upsample,
+    concat and first conv are one ``up_concat_conv`` launch; otherwise the
+    upsampled x1 is padded to x2 first.  ``bilinear=False``: a 2x2 / stride 2
+    transposed conv ``up_kernel`` (in1, 2, 2, in1 // 2), a per-pixel matmul
+    and pixel shuffle."""
+
+    def __init__(self, in1: int, in2: int, features: int, bilinear: bool = True):
         super().__init__()
-        self.DoubleConv_0 = DoubleConv(in1 + in2, features,
-                                       mid_features=(in1 + in2) // 2)
+        self.bilinear = bilinear
+        if bilinear:
+            self.DoubleConv_0 = DoubleConv(in1 + in2, features,
+                                           mid_features=(in1 + in2) // 2)
+        else:
+            self.up_kernel = nn.Parameter(torch.zeros(in1, 2, 2, in1 // 2))
+            self.DoubleConv_0 = DoubleConv(in1 // 2 + in2, features)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if not self.bilinear:
+            uniform_(self.up_kernel, 1.0 / math.sqrt(self.up_kernel.shape[0]), generator)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        if x2.shape[1] == 2 * x1.shape[1] and x2.shape[2] == 2 * x1.shape[2]:
-            return self.DoubleConv_0(up_pair=(x2, x1))
-        x1 = pad_to_match(upsample2x_bilinear_align_corners(x1), x2)
+        if self.bilinear:
+            if x2.shape[1] == 2 * x1.shape[1] and x2.shape[2] == 2 * x1.shape[2]:
+                return self.DoubleConv_0(up_pair=(x2, x1))
+            x1 = upsample2x_bilinear_align_corners(x1)
+        else:
+            x1 = conv_transpose2d_nonoverlap(x1, self.up_kernel)
+        x1 = pad_to_match(x1, x2)
         return self.DoubleConv_0(torch.cat([x2, x1], dim=-1))
+
+
+class UNet(nn.Module):
+    """Input NHWC float; returns ``{"out": float32 logits}``."""
+
+    def __init__(self, in_channels: int = 3, num_classes: int = 2,
+                 bilinear: bool = True, base_c: int = 64):
+        super().__init__()
+        c = base_c
+        factor = 2 if bilinear else 1
+        self.in_conv = DoubleConv(in_channels, c)
+        self.down1 = DoubleConv(c, 2 * c)
+        self.down2 = DoubleConv(2 * c, 4 * c)
+        self.down3 = DoubleConv(4 * c, 8 * c)
+        self.down4 = DoubleConv(8 * c, 16 * c // factor)
+        self.up1 = Up(16 * c // factor, 8 * c, 8 * c // factor, bilinear)
+        self.up2 = Up(8 * c // factor, 4 * c, 4 * c // factor, bilinear)
+        self.up3 = Up(4 * c // factor, 2 * c, 2 * c // factor, bilinear)
+        self.up4 = Up(2 * c // factor, c, c, bilinear)
+        self.out_conv = Conv(c, num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        x1 = self.in_conv(x)
+        x2 = self.down1(max_pool2d(x1))
+        x3 = self.down2(max_pool2d(x2))
+        x4 = self.down3(max_pool2d(x3))
+        x5 = self.down4(max_pool2d(x4))
+        x = self.up1(x5, x4)
+        x = self.up2(x, x3)
+        x = self.up3(x, x2)
+        x = self.up4(x, x1)
+        return {"out": self.out_conv(x).float()}

@@ -1,4 +1,5 @@
-"""Building blocks of the folded EGM-UNet, NHWC."""
+"""Building blocks of the folded UNet family (NHWC) and of the transformer
+models."""
 
 from egm_unet_torch.nn.attention import (  # noqa: F401
     ChannelAttention,
@@ -7,12 +8,16 @@ from egm_unet_torch.nn.attention import (  # noqa: F401
     RecursiveGatedAttention,
     SpatialAttention,
 )
-from egm_unet_torch.nn.grfb import EdgeEnhancedGRFB, FusionConv  # noqa: F401
+from egm_unet_torch.nn.grfb import GRFB, EdgeEnhancedGRFB, FusionConv  # noqa: F401
 from egm_unet_torch.nn.layers import (  # noqa: F401
     BasicConv,
     Conv,
     ConvBNReLU,
+    CoreConv,
+    Dense,
     DoubleConv,
     EdgeAwareFeatureEnhancer,
+    LayerNorm,
+    cast_weights,
     pad_to_match,
 )

@@ -1,5 +1,6 @@
-"""The edge-enhanced GRFB block (module "A") and its FusionConv (port of
-``egm_unet_tpu/nn/grfb.py``; the original GRFB is not on this path)."""
+"""GRFB blocks, BN folded (port of ``egm_unet_tpu/nn/grfb.py``): the
+edge-enhanced variant (module "A") with its FusionConv, and the original
+receptive-field block of the GRFB-UNet baseline."""
 
 from __future__ import annotations
 
@@ -101,3 +102,43 @@ class EdgeEnhancedGRFB(nn.Module):
         out = F.relu(out * 0.1 + self.shortcut(x))
         tw = torch.sigmoid(self.target_enhancer(out))
         return out * (1.0 + tw.mean(dim=-1, keepdim=True))
+
+
+class GRFB(nn.Module):
+    """The original GRFB block (GRFB-UNet baseline): three dilated branches
+    (d = visual, 2*visual, 3*visual), concat with the input, 1x1 linear,
+    residual scaled by 0.1, ReLU.  Stride 1, as every call site of the
+    model."""
+
+    def __init__(self, in_ch: int, features: int, visual: int = 12):
+        super().__init__()
+        inter = in_ch // 8
+        v = visual
+        self.b0_0 = BasicConv(in_ch, 2 * inter, 1)
+        self.b0_1 = BasicConv(2 * inter, 2 * inter, 3, padding=v, dilation=v, relu=False)
+        self.b0_2 = BasicConv(2 * inter, 2 * inter, 1)
+        self.b1_0 = BasicConv(in_ch, inter, 1)
+        self.b1_1 = BasicConv(inter, 2 * inter, 3, padding=1, groups=inter)
+        self.b1_2 = BasicConv(2 * inter, 2 * inter, 1)
+        self.b1_3 = BasicConv(2 * inter, 2 * inter, 3, padding=2 * v, dilation=2 * v,
+                              relu=False)
+        self.b1_4 = BasicConv(2 * inter, 2 * inter, 1)
+        self.b2_0 = BasicConv(in_ch, inter, 1)
+        self.b2_1 = BasicConv(inter, 2 * inter, 3, padding=1, groups=inter)
+        self.b2_2 = BasicConv(2 * inter, 2 * inter, 1)
+        self.b2_3 = BasicConv(2 * inter, 2 * inter, 3, padding=1, groups=2 * inter)
+        self.b2_4 = BasicConv(2 * inter, 2 * inter, 1)
+        self.b2_5 = BasicConv(2 * inter, 2 * inter, 3, padding=3 * v, dilation=3 * v,
+                              relu=False)
+        self.b2_6 = BasicConv(2 * inter, 2 * inter, 1)
+        self.conv_linear = BasicConv(in_ch + 6 * inter, features, 1, relu=False)
+        self.shortcut = BasicConv(in_ch, features, 1, relu=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b0 = self.b0_2(self.b0_1(self.b0_0(x)))
+        b1 = self.b1_4(self.b1_3(self.b1_2(self.b1_1(self.b1_0(x)))))
+        b2 = x
+        for i in range(7):
+            b2 = getattr(self, f"b2_{i}")(b2)
+        out = self.conv_linear(torch.cat([x, b0, b1, b2], dim=-1))
+        return F.relu(out * 0.1 + self.shortcut(x))

@@ -40,6 +40,9 @@ class Conv(nn.Module):
     """Conv2d with an HWIO ``kernel`` (kh, kw, in_ch // groups, features)
     and an optional ``bias``; integer symmetric zero padding."""
 
+    flax_child = "Conv_0"  # the flax wrapper holds one core nn.Conv
+    casts_with_compute_dtype = True
+
     def __init__(self, in_ch: int, features: int, kernel_size=3, stride=1,
                  padding=0, dilation=1, groups: int = 1, use_bias: bool = True):
         super().__init__()
@@ -66,6 +69,67 @@ class Conv(nn.Module):
         return conv2d(x, self.kernel, self.bias, stride=self.stride,
                       padding=self.padding, dilation=self.dilation,
                       groups=self.groups)
+
+
+class CoreConv(Conv):
+    """A ``Conv`` whose flax counterpart is a bare ``nn.Conv`` (its leaves
+    are ``name/kernel``, not ``name/Conv_0/kernel``)."""
+
+    flax_child = None
+
+
+class Dense(nn.Module):
+    """``x @ kernel + bias`` with ``kernel`` [in, out] as flax ``nn.Dense``
+    stores it.  The input is cast to the kernel's dtype, which is the
+    module's compute dtype (``cast_weights``)."""
+
+    casts_with_compute_dtype = True
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Variance 1 / fan_in, so unit-variance inputs stay at scale."""
+        fan_in = self.kernel.shape[0]
+        uniform_(self.kernel, math.sqrt(3.0 / fan_in), generator)
+        if self.bias is not None:
+            uniform_(self.bias, 0.02, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.kernel.dtype), self.kernel.t(), self.bias)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm (eps 1e-5) in float32 with float32 parameters ``scale`` and
+    ``bias`` whatever the compute dtype; the result stays float32, as flax
+    ``nn.LayerNorm(dtype=float32)`` leaves it."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(width))
+        self.bias = nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.scale.dtype != torch.float32:
+            raise TypeError("LayerNorm parameters must stay float32; cast the "
+                            "model with nn.layers.cast_weights, not .to(dtype)")
+        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, 1e-5)
+
+
+def cast_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the matmul and conv weights (``Dense``, ``Conv``) to the compute
+    dtype ``dtype``, in place.  Every other parameter (LayerNorm scales,
+    embeddings, positional tables, output projections) stays float32 and is
+    cast where it is used, as the JAX modules keep ``param_dtype=float32``
+    and compute LayerNorm and the projections in float32.  Use this, not
+    ``model.to(dtype)``, on the transformer models."""
+    for mod in model.modules():
+        if getattr(mod, "casts_with_compute_dtype", False):
+            for p in mod.parameters(recurse=False):
+                p.data = p.data.to(dtype)
+    return model
 
 
 class BasicConv(nn.Module):

@@ -1,4 +1,5 @@
-"""NHWC x HWIO convolution through ``F.conv2d``.
+"""NHWC x HWIO convolution through ``F.conv2d``, and the stride == kernel
+transposed convolution as a per-token matmul.
 
 ``x.permute(0, 3, 1, 2)`` is a channels_last view of an NHWC tensor, so no
 copy is made; the result is permuted back to NHWC.  Integer padding ``p``
@@ -21,3 +22,21 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None
                  stride=stride, padding=padding, dilation=dilation,
                  groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose2d_nonoverlap(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Transposed conv with stride == kernel size (non-overlapping patches):
+    a per-pixel matmul and a pixel shuffle,
+
+        out[b, i*kh+di, j*kw+dj, o] = sum_c x[b, i, j, c] * w[c, di, dj, o]
+
+    ``w`` is (C_in, kh, kw, C_out), cast to ``x.dtype``; sums in float32,
+    output in ``x.dtype``."""
+    b, h, wd, c = x.shape
+    cin, kh, kw, cout = w.shape
+    if c != cin:
+        raise ValueError(f"channel mismatch {c} != {cin}")
+    y = torch.matmul(x.reshape(b, h * wd, c),
+                     w.to(x.dtype).reshape(cin, kh * kw * cout))
+    y = y.reshape(b, h, wd, kh, kw, cout).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(b, h * kh, wd * kw, cout)

@@ -1,0 +1,121 @@
+"""Fused CSA attention (kernel K6).
+
+Replaces ``egm_unet_tpu/ops/pallas/csa.py::csa_attention``: for q, k, v of
+shape [B, S, D] and ``num_heads`` heads of width hd = D / num_heads,
+
+    out = merge_heads((softmax(q_h q_h^T * hd^-1/2)
+                       + softmax(k_h k_h^T * hd^-1/2)) v_h)
+
+with float32 scores, softmaxes and sums.  The CUDA kernel
+(``csrc/csa_attention.cu``) reads and writes [B, S, D] in place, one block
+per (batch, head, 64-query tile) with two online-softmax accumulators, so no
+[S, S] tensor is stored.  The tensor-core rate bounds the work at the path's
+shape; this version multiplies on the CUDA cores (see PERF.md).
+
+``csa_attention`` launches the kernel for CUDA tensors and runs ``csa_plain``
+for CPU tensors; nothing falls back from one to the other.  It is
+differentiable: the backward pass is the gradient of ``csa_plain`` on the
+saved q, k, v, as the JAX package's ``custom_vjp`` takes the gradient of its
+einsum path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from egm_unet_torch.ops.attention import multi_head_attention
+from egm_unet_torch.ops.cuda import build
+from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_same_device,
+                                            stream_handle)
+
+launches = 0  # kernel launches since the last reset
+
+MAX_HEAD_DIM = 128
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _check(q, k, v, num_heads):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.ndim != 3:
+            raise ValueError(f"{name} must be [B, S, D], got shape {tuple(t.shape)}")
+        if t.dtype not in DTYPE_CODES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name} must lie on the CPU or a CUDA device, got "
+                             f"{t.device}")
+    if q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v shapes differ: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if min(q.shape) == 0:
+        raise ValueError(f"empty input of shape {tuple(q.shape)}")
+    d = q.shape[-1]
+    if num_heads <= 0 or d % num_heads:
+        raise ValueError(f"width {d} not divisible by num_heads {num_heads}")
+    if d // num_heads > MAX_HEAD_DIM:
+        raise ValueError(f"head width {d // num_heads} > {MAX_HEAD_DIM}")
+    check_same_device(("q", q), ("k", k), ("v", v))
+
+
+def csa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              num_heads: int) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the einsum path of
+    ``ops/attention.py`` (float32 scores and softmaxes, weights rounded to
+    ``v.dtype`` before the last product)."""
+    return multi_head_attention(q, k, v, num_heads, csa=True)
+
+
+def _forward(q, k, v, num_heads):
+    global launches
+    if q.device.type == "cpu":
+        return csa_plain(q, k, v, num_heads)
+    b, s, d = q.shape
+    out = torch.empty_like(q)
+    lib = build.load("csa_attention")
+    fn = lib.egm_csa_attention
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+             num_heads, d // num_heads, DTYPE_CODES[q.dtype],
+             stream_handle(q.device))
+    build.check_launch(err, "csa_attention")
+    launches += 1
+    return out
+
+
+class _CSAFunction(torch.autograd.Function):
+    """Forward: the kernel.  Backward: the gradient of ``csa_plain``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return _forward(q, k, v, num_heads)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = csa_plain(*saved, ctx.num_heads)
+        grads = torch.autograd.grad(out, saved, grad_out)
+        return (*grads, None)
+
+
+def csa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  num_heads: int) -> torch.Tensor:
+    """q, k, v [B, S, D] contiguous, one dtype (float32 or bfloat16), head
+    width D / num_heads <= 128; returns [B, S, D] in that dtype."""
+    _check(q, k, v, num_heads)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _CSAFunction.apply(q, k, v, num_heads)
+    return _forward(q, k, v, num_heads)

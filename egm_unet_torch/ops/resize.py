@@ -1,4 +1,5 @@
-"""Bilinear resize as separable interpolation matrices (NHWC).
+"""Bilinear and bicubic resize as separable interpolation matrices, and
+nearest resize as an index gather (NHWC).
 
 Port of ``egm_unet_tpu/ops/resize.py``: the same ``(n_out, n_in)`` matrices,
 applied as two matmuls (rows, then columns) accumulated in float32, with the
@@ -8,7 +9,14 @@ intermediate rounded to the working dtype after the first pass as the JAX
 - ``align_corners=True`` is ``nn.Upsample(mode='bilinear',
   align_corners=True)``, the UNet decoder's upsample.
 - ``align_corners=False`` is ``F.interpolate(mode='bilinear')``, used to
-  resize masks back to the original image size.
+  resize masks back to the original image size and CLIPSeg logits to the
+  UNet grid.
+- ``resize_bicubic`` is the Keys cubic with ``a = -0.75`` and replicated
+  borders (``F.interpolate(mode='bicubic')``), which resamples the ViT's
+  positional grid.
+- ``resize_nearest`` has the two index conventions the reference mixes:
+  ``'torch'`` = ``floor(i * n_in / n_out)`` and ``'pil'`` =
+  ``floor((i + 0.5) * n_in / n_out)``.
 """
 
 from __future__ import annotations
@@ -55,6 +63,50 @@ def linear_taps(n_in: int, n_out: int, align_corners: bool = True):
     return lo, hi, w_lo, w_hi
 
 
+def _cubic_weight(t: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """Keys cubic kernel with ``a = -0.75``."""
+    t = np.abs(t)
+    w = np.where(
+        t <= 1.0,
+        (a + 2.0) * t**3 - (a + 3.0) * t**2 + 1.0,
+        np.where(t < 2.0, a * t**3 - 5.0 * a * t**2 + 8.0 * a * t - 4.0 * a, 0.0),
+    )
+    return w.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _cubic_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
+    a = np.zeros((n_out, n_in), dtype=np.float32)
+    if n_out == 1:
+        src = np.array([0.0 if align_corners else max(0.0, 0.5 * n_in - 0.5)])
+    elif align_corners:
+        src = np.arange(n_out) * (n_in - 1) / (n_out - 1)
+    else:
+        src = (np.arange(n_out) + 0.5) * n_in / n_out - 0.5
+    base = np.floor(src).astype(np.int64)
+    frac = src - base
+    rows = np.arange(n_out)
+    for k in range(-1, 3):
+        idx = np.clip(base + k, 0, n_in - 1)  # replicated border
+        a[rows, idx] += _cubic_weight(frac - k)
+    return a
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_index(n_in: int, n_out: int, mode: str) -> np.ndarray:
+    if mode == "torch":
+        idx = np.floor(np.arange(n_out) * n_in / n_out)
+    elif mode == "pil":
+        idx = np.floor((np.arange(n_out) + 0.5) * n_in / n_out)
+    else:
+        raise ValueError(f"unknown nearest mode {mode!r}")
+    return np.clip(idx.astype(np.int64), 0, n_in - 1)
+
+
+def _spatial_hw(x: torch.Tensor):
+    return (x.shape[1], x.shape[2]) if x.ndim == 4 else (x.shape[0], x.shape[1])
+
+
 def _apply_separable(x: torch.Tensor, ah: np.ndarray,
                      aw: np.ndarray) -> torch.Tensor:
     """Rows, then columns, of a floating NHWC or HWC tensor; the matrices are
@@ -73,10 +125,28 @@ def _apply_separable(x: torch.Tensor, ah: np.ndarray,
 def resize_bilinear(x: torch.Tensor, out_hw,
                     align_corners: bool = False) -> torch.Tensor:
     h_out, w_out = int(out_hw[0]), int(out_hw[1])
-    h_in, w_in = ((x.shape[1], x.shape[2]) if x.ndim == 4
-                  else (x.shape[0], x.shape[1]))
+    h_in, w_in = _spatial_hw(x)
     return _apply_separable(x, _linear_matrix(h_in, h_out, align_corners),
                             _linear_matrix(w_in, w_out, align_corners))
+
+
+def resize_bicubic(x: torch.Tensor, out_hw,
+                   align_corners: bool = False) -> torch.Tensor:
+    h_out, w_out = int(out_hw[0]), int(out_hw[1])
+    h_in, w_in = _spatial_hw(x)
+    return _apply_separable(x, _cubic_matrix(h_in, h_out, align_corners),
+                            _cubic_matrix(w_in, w_out, align_corners))
+
+
+def resize_nearest(x: torch.Tensor, out_hw, mode: str = "torch") -> torch.Tensor:
+    """NHWC, HWC or HW tensor of any dtype; rows, then columns."""
+    if x.ndim not in (2, 3, 4):
+        raise ValueError(f"rank {x.ndim} not supported")
+    ax_h = 1 if x.ndim == 4 else 0
+    for axis, n_out in ((ax_h, int(out_hw[0])), (ax_h + 1, int(out_hw[1]))):
+        idx = torch.from_numpy(_nearest_index(x.shape[axis], n_out, mode))
+        x = x.index_select(axis, idx.to(x.device))
+    return x
 
 
 def upsample2x_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:

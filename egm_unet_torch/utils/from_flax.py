@@ -3,9 +3,12 @@
 
 The port's modules carry the flax names, so the mapping is by path: the
 parameter ``a.b.kernel`` of a port ``Conv`` module is the flax leaf
-``a/b/Conv_0/kernel`` (the flax wrapper holds one core ``nn.Conv``), every
-other parameter ``a.b.name`` is ``a/b/name``.  Conv kernels stay HWIO and the
-MCA gate kernels ``(k,)`` as they are.  An unfolded tree (one with
+``a/b/Conv_0/kernel`` (the flax wrapper holds one core ``nn.Conv``; a module
+names that inner child in its ``flax_child`` attribute, as ``LayerNormF32``
+names ``LayerNorm_0``), every other parameter ``a.b.name`` is ``a/b/name``.
+Conv kernels stay HWIO, ``Dense`` kernels [in, out], embeddings and bare
+parameters (``class_embedding``, ``proj``, ``trans_conv_kernel``, ...) and
+the MCA gate kernels ``(k,)`` as they are.  An unfolded tree (one with
 ``batch_stats``) is folded first.  A leaf that is missing, consumed twice,
 of the wrong shape or left unconsumed raises.
 """
@@ -19,7 +22,6 @@ import torch
 import torch.nn as nn
 
 from egm_unet_torch.models.fold_bn import fold_bn_variables
-from egm_unet_torch.nn.layers import Conv
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -37,8 +39,9 @@ def flax_path(model: nn.Module, key: str) -> str:
     """The flax params path of the port's state_dict entry ``key``."""
     mod_path, _, name = key.rpartition(".")
     parts = mod_path.split(".") if mod_path else []
-    if isinstance(model.get_submodule(mod_path), Conv):
-        parts.append("Conv_0")
+    child = getattr(model.get_submodule(mod_path), "flax_child", None)
+    if child:
+        parts.append(child)
     return "/".join(parts + [name])
 
 

@@ -21,7 +21,7 @@ from tests.torch_port_util import assert_close, random_variables, to_torch
 torch.set_grad_enabled(False)
 
 
-@pytest.mark.parametrize("name", ["egm_unet", "egm_unet_ab"])
+@pytest.mark.parametrize("name", ["egm_unet", "egm_unet_ab", "grfb_unet", "unet"])
 def test_full_model_logits(name):
     x = np.random.default_rng(0).standard_normal((2, 64, 48, 3)).astype(np.float32)
     v = random_variables(jcreate(name, base_c=8), jnp.asarray(x), train=True)
@@ -33,12 +33,28 @@ def test_full_model_logits(name):
     assert_close(out, ref, 1e-3, 1e-3)
 
 
+@pytest.mark.parametrize("hw", [(64, 48), (36, 52)])  # exact 2x stages, and padded ones
+def test_unet_transposed_conv_decoder(hw):
+    """``bilinear=False``: the Up stage is the stride-2 transposed conv
+    (``up_kernel``), padded to the skip where the sizes are odd."""
+    x = np.random.default_rng(1).standard_normal((1, *hw, 3)).astype(np.float32)
+    v = random_variables(jcreate("unet", base_c=8, bilinear=False), jnp.asarray(x),
+                         train=True, seed=4)
+    folded = jcreate("unet", base_c=8, bilinear=False, fold_bn=True)
+    ref = np.asarray(jax.jit(folded.apply)(jfold(v), jnp.asarray(x))["out"])
+    port = load_flax_variables(create_model("unet", base_c=8, bilinear=False), v)
+    assert port.up1.up_kernel.shape == (128, 2, 2, 64)
+    assert_close(port(to_torch(x))["out"], ref, 1e-3, 1e-3)
+    with pytest.raises(ValueError, match="bilinear"):
+        create_model("egm_unet", bilinear=False)
+
+
 def _shape_tree(name):
     x = jnp.zeros((1, 32, 32, 3))
     return random_variables(jcreate(name, base_c=8), x, train=True)
 
 
-@pytest.mark.parametrize("name", sorted(MODEL_CONFIGS))
+@pytest.mark.parametrize("name", sorted([*MODEL_CONFIGS, "unet"]))
 def test_bridge_consumes_every_leaf(name):
     v = _shape_tree(name)
     model = create_model(name, base_c=8)
@@ -65,8 +81,13 @@ def test_bridge_rejects_missing_and_unused_leaves():
 
 
 def test_unported_configs_raise():
+    """Every configuration of the JAX registry is ported now; only an unknown
+    name raises."""
+    from egm_unet_tpu.models.registry import MODEL_CONFIGS as JCONFIGS
+
+    assert set(MODEL_CONFIGS) == set(JCONFIGS)
     for name in ("unet", "grfb_unet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_model(name)
-    with pytest.raises(ValueError):
+        model = create_model(name, base_c=8, generator=torch.Generator().manual_seed(0))
+        assert model(torch.zeros(1, 32, 32, 3))["out"].shape == (1, 32, 32, 2)
+    with pytest.raises(ValueError, match="unknown model"):
         create_model("no_such_model")

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """GPU smoke run of egm_unet_torch: builds the CUDA kernels from
 ``egm_unet_torch/csrc``, holds each against its plain PyTorch version at the
-shapes the main paths give it, and drives two main paths at full width:
+shapes the main paths give it, and drives the main paths at full width:
 
 - serving: a few requests through ``serving.Predictor`` (EGM-UNet A+B+C,
-  base_c 32, 2 classes, bf16, batch 8);
+  base_c 32, 2 classes, bf16, batch 8) on the default kernel route
+  (``conv3x3_gemm`` + ``up_concat_conv``);
 - fusion: 16 images and two text prompts through the text-prompted pipeline
   of ``cli/predict_clipseg.py`` (CLIPSeg rd64 over ViT-B/16 at 352 px with the
   248-token Long-CLIP text tower, batch 32, plus EGM-UNet at 565 px, batch 16,
-  both bf16, fused as ``clip + 0.5 * unet``).
+  both bf16, fused as ``clip + 0.5 * unet``);
+- serve: the HTTP server of ``cli/serve.py`` on 127.0.0.1 with the same
+  EGM-UNet on the pair / fused-upsample route (``conv3x3_pair_gemm`` +
+  ``upsample2x_fused``), answering 12 concurrent PNG requests of two sizes;
+- predict_cli: ``cli/predict.py --synthetic --amp`` on that route.
 
-It then checks the card against the CPU on small inputs, for the UNets and for
-a small CLIPSeg.
+It then checks the card against the CPU on small inputs, for the UNets on
+every route and for a small CLIPSeg.
 
     python3 chip_smoke.py
 
@@ -28,10 +33,14 @@ the card compute in full float32.
 
 from __future__ import annotations
 
+import contextlib
+import http.client
+import io
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -39,6 +48,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from PIL import Image
+
+from egm_unet_torch.cli import predict as predict_cli
+from egm_unet_torch.cli import serve as serve_cli
 from egm_unet_torch.cli.eval_clipseg import fused_masks
 from egm_unet_torch.data.synthetic import synthetic_tp_sample
 from egm_unet_torch.data.transforms import normalize, resize_short_side
@@ -47,9 +60,9 @@ from egm_unet_torch.models.clip.model import VIT_B16, CLIPConfig
 from egm_unet_torch.models.clipseg import CLIPDensePredT
 from egm_unet_torch.models.registry import init_weights
 from egm_unet_torch.nn.attention import MCALayer
-from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU, cast_weights
+from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU, DoubleConv, cast_weights
 from egm_unet_torch.ops.cuda import (build, conv3x3, csa, launch_counts, mca,
-                                     reset_launch_counts, upconv)
+                                     reset_launch_counts, resize2x, upconv)
 from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_of
 
 ROOT = Path(__file__).resolve().parent
@@ -58,19 +71,33 @@ BUCKET = (576, 768)  # the 565x752 requests' bucket
 BATCH = 8
 BASE_C = 32
 SEED = 0
-# kernel launches of one EGM-UNet forward and of one CLIPSeg forward
-PER_FORWARD = {"mca_fused": 4, "conv3x3_gemm": 18, "up_concat_conv": 4,
-               "csa_attention": 0}
-PER_CLIPSEG_FORWARD = {"mca_fused": 0, "conv3x3_gemm": 0, "up_concat_conv": 0,
-                       "csa_attention": 10}  # blocks 0..9; 10 and 11 are not needed
 SOURCES = {"mca_fused": "egm_unet_torch/csrc/mca_fused.cu",
            "conv3x3_gemm": "egm_unet_torch/csrc/conv3x3.cu",
+           "conv3x3_pair_gemm": "egm_unet_torch/csrc/conv3x3_pair.cu",
+           "upsample2x_fused": "egm_unet_torch/csrc/upsample2x.cu",
            "up_concat_conv": "egm_unet_torch/csrc/up_concat_conv.cu",
            "csa_attention": "egm_unet_torch/csrc/csa_attention.cu"}
 REPLACES = {"mca_fused": "egm_unet_tpu/ops/pallas/mca.py:133",
             "conv3x3_gemm": "egm_unet_tpu/ops/pallas/conv3x3.py:306",
+            "conv3x3_pair_gemm": "egm_unet_tpu/ops/pallas/conv3x3.py:234",
+            "upsample2x_fused": "egm_unet_tpu/ops/pallas/resize2x.py:191",
             "up_concat_conv": "egm_unet_tpu/ops/pallas/upconv.py:136",
             "csa_attention": "egm_unet_tpu/ops/pallas/csa.py:125"}
+
+
+def per_forward(**launches) -> dict:
+    """Launch counts by kernel name, 0 for the kernels not named."""
+    return {name: launches.get(name, 0) for name in SOURCES}
+
+
+# kernel launches of one EGM-UNet forward on the default route, of one on the
+# pair / fused-upsample route (the stem and the four decoder DoubleConvs are
+# one pair launch each, which takes the stem's two and the decoders' four
+# second convs from conv3x3_gemm), and of one CLIPSeg forward
+PER_FORWARD = per_forward(mca_fused=4, conv3x3_gemm=18, up_concat_conv=4)
+PER_FORWARD_PAIR = per_forward(mca_fused=4, conv3x3_gemm=12, conv3x3_pair_gemm=5,
+                               upsample2x_fused=4)
+PER_CLIPSEG_FORWARD = per_forward(csa_attention=10)  # blocks 0..9; 10, 11 not needed
 # the fusion path, the defaults of cli/predict_clipseg.py
 CLIP_SIZE, CLIP_BATCH, UNET_BATCH, BASE_SIZE, ALPHA = 352, 32, 16, 565, 0.5
 N_FUSION_IMAGES = 16
@@ -162,6 +189,18 @@ def make_predictor():
                      generator=torch.Generator().manual_seed(SEED))
 
 
+def make_pair_server():
+    """The HTTP server of ``cli/serve.py`` as a user starts it with
+    ``--init-random`` (seed 0, the weights of ``make_predictor``) on the pair /
+    fused-upsample route, bound to a free port of 127.0.0.1; not serving yet."""
+    args = serve_cli.parse_args([
+        "--init-random", "--model", "egm_unet", "--base-c", str(BASE_C),
+        "--num-classes", "1", "--batch-size", str(BATCH), "--dtype", "bfloat16",
+        "--conv-impl", "pair", "--upsample-impl", "fused",
+        "--batch-window-ms", "50", "--host", "127.0.0.1", "--port", "0"])
+    return serve_cli.make_server(args)
+
+
 def bucket_batch(pred, images) -> torch.Tensor:
     """The predictor's own preprocessing, packed into one bucket batch."""
     batch = np.zeros((BATCH, *BUCKET, 3), np.float32)
@@ -173,11 +212,12 @@ def bucket_batch(pred, images) -> torch.Tensor:
     return torch.from_numpy(batch).to("cuda", pred.dtype)
 
 
-def capture_sites(model, x):
-    """Run one forward and record every kernel call site with its inputs."""
+def capture_sites(model, x, kinds=(ConvBNReLU, BasicConv, MCALayer)):
+    """Run one forward and record every call of a module of ``kinds`` with
+    its inputs."""
     sites, hooks = [], []
     for name, mod in model.named_modules():
-        if isinstance(mod, (ConvBNReLU, BasicConv, MCALayer)):
+        if isinstance(mod, kinds):
             if isinstance(mod, BasicConv) and not mod.Conv_0.is_plain3x3():
                 continue
 
@@ -191,12 +231,65 @@ def capture_sites(model, x):
     return sites
 
 
-def site_call(site, dtype=None):
-    """(kernel name, shape key, kernel fn, plain fn, library fn or None,
-    bytes, flops, dtype) for one captured site, its tensors cast to
-    ``dtype`` when given."""
+def pair_site_calls(mod, args, kwargs, cast) -> list:
+    """The kernel calls of a DoubleConv on the pair / fused-upsample route:
+    ``upsample2x_fused`` on the decoder's low-resolution input where there is
+    one, then ``conv3x3_pair_gemm`` on the (concatenated) input."""
+    calls = []
+    up_pair = kwargs.get("up_pair")
+    if up_pair is not None:
+        x2, x1 = cast(up_pair[0].contiguous()), cast(up_pair[1].contiguous())
+        up = resize2x.upsample2x_fused(x1)
+        x1_nchw = x1.permute(0, 3, 1, 2)
+
+        def up_library():  # one PyTorch call of the same function, timed only
+            return F.interpolate(x1_nchw, scale_factor=2, mode="bilinear",
+                                 align_corners=True)
+        # per output element: two 2-tap blends along W, one along H
+        calls.append(("upsample2x_fused", ("up2x", tuple(x1.shape), str(x1.dtype)),
+                      lambda: resize2x.upsample2x_fused(x1),
+                      lambda: resize2x.upsample2x_plain(x1), up_library,
+                      nbytes(x1, up), 9.0 * up.numel(), x1.dtype))
+        x = torch.cat([x2, up], dim=-1)
+    else:
+        x = cast(args[0].contiguous())
+    c1, c2 = mod.ConvBNReLU_0.Conv_0, mod.ConvBNReLU_1.Conv_0
+    w1, w2 = cast(c1.kernel), cast(c2.kernel)
+    b1, b2 = c1.bias.float(), c2.bias.float()
+    cm, co = w1.shape[-1], w2.shape[-1]
+    out_numel = x.numel() // x.shape[-1] * co
+    needed, executed = conv3x3.pair_flops(tuple(x.shape), cm, co, x.element_size())
+    x_nchw = x.permute(0, 3, 1, 2)
+    w1_oihw, w2_oihw = (w.permute(3, 2, 0, 1).contiguous() for w in (w1, w2))
+    b1_lib, b2_lib = b1.to(x.dtype), b2.to(x.dtype)
+
+    def library():  # cuDNN's two convs with bias and ReLU, timed only
+        mid = F.relu(F.conv2d(x_nchw, w1_oihw, b1_lib, padding=1))
+        return F.relu(F.conv2d(mid, w2_oihw, b2_lib, padding=1))
+    calls.append(("conv3x3_pair_gemm",
+                  ("pair", tuple(x.shape), cm, co, str(x.dtype)),
+                  lambda: conv3x3.conv3x3_pair_gemm(x, w1, b1, w2, b2),
+                  lambda: conv3x3.conv3x3_pair_plain(x, w1, b1, w2, b2), library,
+                  nbytes(x, w1, w2, b1, b2) + out_numel * x.element_size(), needed,
+                  x.dtype, {"executed_flops": executed,
+                            "tile": list(conv3x3.pair_tile(cm, co, x.element_size()))}))
+    return calls
+
+
+def site_calls(site, dtype=None) -> list:
+    """The kernel calls of one captured site, its tensors cast to ``dtype``
+    when given; each is (kernel name, shape key, kernel fn, plain fn, library
+    fn or None, bytes, flops, dtype[, extra record fields])."""
     name, mod, args, kwargs = site
     cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype).contiguous())
+    if isinstance(mod, DoubleConv):
+        return pair_site_calls(mod, args, kwargs, cast)
+    return [site_call(site, cast)]
+
+
+def site_call(site, cast):
+    """The one kernel call of an MCALayer, ConvBNReLU or BasicConv site."""
+    name, mod, args, kwargs = site
     if isinstance(mod, MCALayer):
         x = cast(args[0].contiguous())
         with torch.inference_mode():
@@ -268,7 +361,8 @@ def compare(kernel_fn, plain_fn, dtype) -> tuple:
 def kernel_record(site: str, call, reps: int, **extra) -> dict:
     """Check one kernel call against its plain version, time both (and the
     library call), print the record; fails the run past the tolerance."""
-    name, key, kfn, pfn, lfn, nb, flops, dtype = call
+    name, key, kfn, pfn, lfn, nb, flops, dtype = call[:8]
+    extra = {**extra, **(call[8] if len(call) > 8 else {})}
     err, tol, scale = compare(kfn, pfn, dtype)
     t_bound, by = bound(nb, flops, dtype)
     r = {"phase": "kernel", "name": name, "site": site, **extra,
@@ -283,21 +377,26 @@ def kernel_record(site: str, call, reps: int, **extra) -> dict:
     return r
 
 
-def phase_kernels(pred, images) -> list:
+def phase_kernels(pred, pair_pred, images) -> list:
+    """Every kernel at every shape its main path gives it: the sites of the
+    default route's forward, and the pair and upsample sites of the pair /
+    fused-upsample route's (its other sites are the default route's)."""
     x = bucket_batch(pred, images)
-    sites = capture_sites(pred.model, x)
+    sites = (capture_sites(pred.model, x)
+             + capture_sites(pair_pred.model, x, kinds=(DoubleConv,)))
     seen = {}
     for site in sites:
-        call = site_call(site)
-        key = call[1]
-        if key in seen:
-            seen[key]["count"] += 1
-        else:
-            seen[key] = {"site": site[0], "call": call, "count": 1, "raw": site}
+        for call in site_calls(site):
+            key = call[1]
+            if key in seen:
+                seen[key]["count"] += 1
+            else:
+                seen[key] = {"site": site[0], "call": call, "count": 1, "raw": site}
     counts = {}
     for rec in seen.values():
         counts[rec["call"][0]] = counts.get(rec["call"][0], 0) + rec["count"]
     want = {k: n for k, n in PER_FORWARD.items() if n}
+    want.update({k: PER_FORWARD_PAIR[k] for k in ("conv3x3_pair_gemm", "upsample2x_fused")})
     check(counts == want, f"kernel sites per forward {counts} != {want}")
 
     records = [kernel_record(rec["site"], rec["call"], 10,
@@ -306,8 +405,9 @@ def phase_kernels(pred, images) -> list:
     firsts = {}
     for rec in seen.values():
         firsts.setdefault(rec["call"][0], rec)
-    records += [kernel_record(rec["site"], site_call(rec["raw"], torch.float32), 5)
-                for rec in firsts.values()]
+    for name, rec in firsts.items():
+        call = next(c for c in site_calls(rec["raw"], torch.float32) if c[0] == name)
+        records.append(kernel_record(rec["site"], call, 5))
     del sites, seen, firsts
     torch.cuda.empty_cache()
     # K6 at the CLIPSeg forward's shape: ten sites in bf16, and once in float32
@@ -326,7 +426,11 @@ def phase_kernels(pred, images) -> list:
 def phase_edges() -> None:
     """Each kernel against its plain version at small odd shapes: partial
     pixel and channel tiles, C=3, every output-width tile config; for K6,
-    sequence lengths off the 64-row tiles and every head-width template."""
+    sequence lengths off the 64-row tiles and every head-width template; for
+    the pair kernel, maps smaller than a tile (down to 1x1), Cm != Co, and
+    mid widths that force each smaller tile (400 and 800: 8x8 in float32 and
+    bfloat16; 1300: 4x4; 3000: 2x2 in float32); for the upsample, odd sizes,
+    H = 1, C = 3 and a pointer off the 16-byte grid (the scalar kernel)."""
     gen = torch.Generator().manual_seed(SEED)
     rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).cuda()
     worst = {}
@@ -352,6 +456,24 @@ def phase_edges() -> None:
                           lambda a=x2, b=x1, k=k, s=bias: upconv.up_concat_conv(a, b, k, s),
                           lambda a=x2, b=x1, k=k, s=bias: upconv.up_concat_conv_plain(
                               a, b, k, s)))
+        for b_, h, w_, c, cm, co in ((2, 7, 9, 3, 7, 5), (1, 1, 1, 4, 4, 4),
+                                     (1, 2, 2, 3, 8, 6), (1, 3, 3, 5, 20, 33),
+                                     (2, 17, 19, 33, 70, 40), (1, 5, 30, 16, 32, 32),
+                                     (1, 9, 9, 8, 400, 16), (1, 9, 9, 8, 800, 16),
+                                     (1, 5, 5, 8, 1300, 8), (1, 4, 4, 4, 3000, 4)):
+            x = rnd(b_, h, w_, c).to(dtype)
+            w1, w2 = rnd(3, 3, c, cm, scale=(2 / (9 * c)) ** 0.5), rnd(
+                3, 3, cm, co, scale=(2 / (9 * cm)) ** 0.5)
+            b1, b2 = rnd(cm, scale=0.1), rnd(co, scale=0.1)
+            cases.append(("conv3x3_pair_gemm",
+                          lambda a=(x, w1, b1, w2, b2): conv3x3.conv3x3_pair_gemm(*a),
+                          lambda a=(x, w1, b1, w2, b2): conv3x3.conv3x3_pair_plain(*a)))
+        ups = [rnd(*shape).to(dtype) for shape in ((2, 5, 7, 3), (1, 1, 4, 8),
+                                                   (2, 9, 13, 16), (1, 3, 1, 40))]
+        ups.append(rnd(2 * 6 * 5 * 16 + 1).to(dtype)[1:].view(2, 6, 5, 16))  # unaligned
+        for x in ups:
+            cases.append(("upsample2x_fused", lambda x=x: resize2x.upsample2x_fused(x),
+                          lambda x=x: resize2x.upsample2x_plain(x)))
         for shape in ((2, 10, 32, 4), (1, 64, 64, 1), (1, 17, 64, 2),
                       (3, 197, 768, 12), (2, 70, 200, 2)):  # head widths 8..100
             call = csa_call(shape, dtype, seed=SEED + 1)
@@ -404,6 +526,167 @@ def phase_serving(pred, dev) -> dict:
     phase_profile("profile", lambda: pred.forward(x), "serving_profile.txt",
                   {"conv3x3_gemm+up_concat_conv": "igemm3x3_kernel",
                    "mca_fused": "mca_fused_kernel"})
+    return rec
+
+
+def http_request(port: int, method: str, path: str, body=None) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request(method, path, body=body)
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data
+
+
+def count_forwards(model) -> tuple:
+    """(list that grows by one per forward of ``model``, the hook's handle)."""
+    calls = []
+    return calls, model.register_forward_hook(lambda m, a, out: calls.append(1))
+
+
+def phase_serve(httpd, batcher, pred, dev) -> dict:
+    """The pair / fused-upsample route behind the HTTP server: 12 concurrent
+    PNG requests of two sizes (two shape buckets), each reply checked, the
+    masks held against ``Predictor.predict``, the launch counts against the
+    forwards the server ran, and the route's forward timed beside the default
+    route's on the same batch."""
+    pair_pred = batcher.predictor
+    cfg = pair_pred.cfg
+    check((cfg.conv_impl, cfg.upsample_impl, cfg.batch_size, cfg.dtype)
+          == ("pair", "fused", BATCH, "bfloat16"), f"server predictor config {cfg}")
+    port = httpd.server_port
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    status, body = http_request(port, "GET", "/healthz")
+    check(status == 200 and body == b"warming", f"/healthz before traffic: {status} {body}")
+
+    sizes = [(565, 752)] * 8 + [(600, 500)] * 4
+    images = [synthetic_tp_sample(200 + i, h, w)[0] for i, (h, w) in enumerate(sizes)]
+    bodies = []
+    for img in images:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        bodies.append(buf.getvalue())
+    buckets = sorted({bucket_of(pair_pred._preprocess(img).shape) for img in images})
+    check(BUCKET in buckets and len(buckets) == 2, f"request buckets {buckets}")
+
+    replies = [None] * len(images)
+
+    def client(i):
+        replies[i] = http_request(port, "POST", "/predict", bodies[i])
+
+    forwards, hook = count_forwards(pair_pred.model)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(len(images))]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hook.remove()
+    n_fwd = len(forwards)
+
+    check(all(r is not None and r[0] == 200 for r in replies),
+          f"HTTP statuses {[None if r is None else r[0] for r in replies]}")
+    masks = [np.asarray(Image.open(io.BytesIO(r[1]))) for r in replies]
+    for img, mask in zip(images, masks):
+        check(mask.shape == img.shape[:2], f"reply {mask.shape} for request {img.shape}")
+        check(mask.dtype == np.uint8 and set(np.unique(mask)) <= {0, 255},
+              "reply values not in {0, 255}")
+    expect = {k: v * n_fwd for k, v in PER_FORWARD_PAIR.items()}
+    check(n_fwd >= 2 and launches == expect,
+          f"serve launches {launches} != {expect} for {n_fwd} forwards")
+
+    status, body = http_request(port, "GET", "/healthz")
+    check(status == 200 and body == b"ok", f"/healthz after traffic: {status} {body}")
+    status, body = http_request(port, "GET", "/stats")
+    check(status == 200, f"/stats status {status}")
+    stats = json.loads(body)
+    lat = stats["latency_ms"]
+    check(stats["requests"] == len(images) and 1 <= stats["batches"] < len(images)
+          and stats["mean_batch_occupancy"] > 1.0, f"/stats {stats}")
+    check(0 < lat["p50"] <= lat["p95"] <= lat["p99"], f"latency percentiles {lat}")
+    httpd.shutdown()
+    batcher.shutdown()
+    httpd.server_close()
+    thread.join(timeout=10)
+    check(not thread.is_alive(), "the server thread did not stop")
+
+    # the same images through the predictor, without the server
+    direct = pair_pred.predict(images)
+    same = [bool(np.array_equal(m, d * 255)) for m, d in zip(masks, direct)]
+    check(all(same), f"HTTP masks differ from Predictor.predict: {same}")
+
+    # the two routes on one bucket batch: masks, then times in turns
+    x = bucket_batch(pred, images[:BATCH])
+    with torch.inference_mode():
+        logits = pair_pred.model(x)["out"]
+    check(tuple(logits.shape) == (BATCH, *BUCKET, 2) and bool(torch.isfinite(logits).all()),
+          "pair-route logits are not finite [8, 576, 768, 2]")
+    agreement = (pair_pred.forward(x) == pred.forward(x)).float().mean().item()
+    check(agreement >= 0.99, f"route masks agree on {agreement} < 0.99 of pixels")
+    ms_default = [time_ms(lambda: pred.forward(x), reps=5, warm=1)]
+    ms_pair = [time_ms(lambda: pair_pred.forward(x), reps=5, warm=1) for _ in range(2)]
+    ms_default.append(time_ms(lambda: pred.forward(x), reps=5, warm=1))
+    rec = {"phase": "serve", "requests": len(images), "buckets": [list(b) for b in buckets],
+           "forwards": n_fwd, "launches": launches,
+           "launches_per_forward": PER_FORWARD_PAIR, "wall_s": wall, "stats": stats,
+           "http_masks_equal_predict": True, "route": ["pair", "fused"],
+           "bucket": list(BUCKET), "batch": BATCH, "dtype": "bfloat16",
+           "ms_per_batch": statistics.median(ms_pair), "ms_per_batch_runs": ms_pair,
+           "ms_per_batch_default_route": statistics.median(ms_default),
+           "ms_per_batch_default_route_runs": ms_default,
+           "img_per_s": BATCH / statistics.median(ms_pair) * 1e3,
+           "route_mask_agreement": agreement, "card": dev["nvidia_smi"],
+           "foreground_share": float(np.mean([(mk > 0).mean() for mk in masks]))}
+    emit(rec)
+    phase_profile("serve_profile", lambda: pair_pred.forward(x), "serve_profile.txt",
+                  {"conv3x3_pair_gemm": "conv3x3_pair_kernel",
+                   "upsample2x_fused": "upsample2x_kernel",
+                   "conv3x3_gemm": "igemm3x3_kernel", "mca_fused": "mca_fused_kernel"})
+    return rec
+
+
+def phase_predict_cli(dev) -> dict:
+    """``cli/predict.py`` as a user runs it on synthetic images: bf16, the pair
+    / fused-upsample route, one warm-up and one timed forward per image."""
+    out_dir = OUT_DIR / "predict_cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("*.png"):
+        old.unlink()
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        predict_cli.main(["--synthetic", "--amp", "--conv-impl", "pair",
+                          "--upsample-impl", "fused", "--save-result", str(out_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    lines = printed.getvalue().splitlines()
+    times = [float(ln.split(": ")[1]) for ln in lines if ln.startswith("inference time: ")]
+    check(len(times) == 4 and lines[-1].startswith("FPS: "), f"CLI output {lines}")
+    expect = {k: v * 2 * len(times) for k, v in PER_FORWARD_PAIR.items()}
+    check(launches == expect, f"predict CLI launches {launches} != {expect}")
+    names = sorted(f.name for f in out_dir.glob("*.png"))
+    check(names == [f"{i:04d}.png" for i in range(4)], f"predict CLI wrote {names}")
+    shares = []
+    for name in names:
+        mask = np.asarray(Image.open(out_dir / name))
+        check(mask.shape == (565, 752) and mask.dtype == np.uint8
+              and set(np.unique(mask)) <= {0, 255}, f"{name}: {mask.shape} {mask.dtype}")
+        shares.append(float((mask > 0).mean()))
+    rec = {"phase": "predict_cli", "images": len(times), "launches": launches,
+           "forwards": 2 * len(times), "inference_s": times,
+           "fps": float(lines[-1].split(": ")[1]), "wall_s": wall,
+           "route": ["pair", "fused"], "dtype": "bfloat16", "batch": 1,
+           "card": dev["nvidia_smi"], "foreground_share": float(np.mean(shares))}
+    emit(rec)
     return rec
 
 
@@ -524,27 +807,49 @@ def phase_fusion(unet, dev) -> dict:
 
 def phase_card_vs_cpu() -> None:
     """The same float32 weights and inputs on the card (kernels) and on the
-    CPU (plain versions): the two UNets of the fusion CLIs at 128x128, and a
-    small CLIPSeg with 64-wide heads."""
+    CPU (plain versions): the two UNets of the fusion CLIs at 128x128 on the
+    default route; EGM-UNet on the three other routes and the vanilla UNet at
+    base_c 64 (mid widths up to 512: the pair kernel's 8x8 tile in float32) on
+    the pair / fused-upsample route, each at 128x128 and at 100x132, where the
+    decoder stages are not twice their inputs and ``Up`` pads; and a small
+    CLIPSeg with 64-wide heads."""
     imgs = []
     for i in range(2):
         img, _ = synthetic_tp_sample(10 + i, 160, 128)
         imgs.append(normalize(resize_short_side(img, None, 128)[0]))
     x = torch.from_numpy(np.stack(imgs)[:, :128, :128].copy())  # 2 x 128 x 128 x 3
-    for name in ("egm_unet", "grfb_unet"):
-        model = create_model(name, base_c=BASE_C, num_classes=2,
+    x_odd = torch.from_numpy(np.stack(
+        [normalize(synthetic_tp_sample(20 + i, 100, 132)[0]) for i in range(2)]))
+    egm = PER_FORWARD
+    cases = [("egm_unet", BASE_C, "gemm", "matmul", x, egm),
+             ("grfb_unet", BASE_C, "gemm", "matmul", x, None)]
+    for xx in (x, x_odd):
+        cases += [
+            ("egm_unet", BASE_C, "pair", "matmul", xx, per_forward(
+                mca_fused=4, conv3x3_gemm=12, conv3x3_pair_gemm=5)),
+            # K2 for both decoder convs, where the default route has K5
+            ("egm_unet", BASE_C, "gemm", "fused", xx, per_forward(
+                mca_fused=4, conv3x3_gemm=22, upsample2x_fused=4)),
+            ("egm_unet", BASE_C, "pair", "fused", xx, PER_FORWARD_PAIR),
+            ("unet", 64, "pair", "fused", xx, per_forward(
+                conv3x3_pair_gemm=9, upsample2x_fused=4))]
+    for name, base_c, conv_impl, up_impl, xx, want in cases:
+        model = create_model(name, base_c=base_c, num_classes=2, conv_impl=conv_impl,
+                             upsample_impl=up_impl,
                              generator=torch.Generator().manual_seed(SEED)).eval()
-        cpu = model(x)["out"]
+        cpu = model(xx)["out"]
         gpu_model = model.to("cuda")
         reset_launch_counts()
-        gpu = gpu_model(x.to("cuda"))["out"].cpu()
+        gpu = gpu_model(xx.to("cuda"))["out"].cpu()
         launches = launch_counts()
-        if name == "egm_unet":
-            check(launches == PER_FORWARD, f"float32 forward launches {launches}")
+        if want is not None:
+            check(launches == want, f"{name} {conv_impl}/{up_impl} float32 forward "
+                                    f"launches {launches} != {want}")
         else:  # no MCA; the GRFB blocks hold no plain 3x3 conv of their own
             check(launches["conv3x3_gemm"] >= 14 and launches["up_concat_conv"] == 4
                   and launches["mca_fused"] == 0, f"grfb_unet launches {launches}")
-        card_vs_cpu_record(name, list(x.shape), gpu, cpu, launches, masks=True)
+        card_vs_cpu_record(name, list(xx.shape), gpu, cpu, launches, masks=True,
+                           base_c=base_c, route=[conv_impl, up_impl])
 
     cfg = CLIPConfig(embed_dim=64, image_resolution=64, vision_layers=3,
                      vision_width=128, vision_patch_size=16, context_length=32,
@@ -567,11 +872,12 @@ def phase_card_vs_cpu() -> None:
                        masks=False)
 
 
-def card_vs_cpu_record(name, shape, gpu, cpu, launches, masks: bool) -> None:
+def card_vs_cpu_record(name, shape, gpu, cpu, launches, masks: bool, **extra) -> None:
     diff = (gpu - cpu).abs().max().item()
     scale = cpu.abs().max().item()
     tol = 1e-3 * max(scale, 1.0)
-    rec = {"phase": "card_vs_cpu", "model": name, "shape": shape, "dtype": "float32",
+    rec = {"phase": "card_vs_cpu", "model": name, **extra, "shape": shape,
+           "dtype": "float32",
            "logits_max_abs_diff": diff, "logits_max_abs": scale, "tol": tol,
            "launches": launches}
     if masks:
@@ -584,28 +890,30 @@ def card_vs_cpu_record(name, shape, gpu, cpu, launches, masks: bool) -> None:
               f"{name}: card vs CPU mask agreement {rec['mask_agreement']} < 0.99")
 
 
-def summary(records, serving_launches, fusion_launches) -> list:
+def summary(records, main_paths: dict) -> list:
     """Per kernel: times summed over one forward's launches at the path shape
-    (each shape's time times its sites per forward); launches from the two
-    main-path runs, whose counts were reset just before each."""
-    per = {name: f"one EGM-UNet forward, batch {BATCH}, {BUCKET[0]}x{BUCKET[1]}, bf16"
-           for name in PER_FORWARD}
+    (each shape's time times its sites per forward); launches from the
+    main-path runs ``main_paths`` (phase -> its launch counts), whose counts
+    were reset just before each."""
+    fwd = f"batch {BATCH}, {BUCKET[0]}x{BUCKET[1]}, bf16"
+    per = {name: f"one EGM-UNet forward, {fwd}" for name in SOURCES}
+    for name in ("conv3x3_pair_gemm", "upsample2x_fused"):
+        per[name] = f"one EGM-UNet forward on the pair / fused-upsample route, {fwd}"
     per["csa_attention"] = (f"one CLIPSeg forward, batch {CLIP_BATCH}, "
                             f"{CSA_PATH_SHAPE[1]} tokens, bf16")
     out = []
-    for name in PER_FORWARD:
+    for name in SOURCES:
         mine = [r for r in records if r["name"] == name]
         path = [r for r in mine if "sites_per_forward" in r]
         per_fwd = lambda key: sum(r[key] * r["sites_per_forward"] for r in path)
         t_bytes = sum(r["bound_ms"] * r["sites_per_forward"] for r in path
                       if r["bound_by"] == "bytes")
-        launches = serving_launches[name] + fusion_launches[name]
+        launches = sum(counts[name] for counts in main_paths.values())
         check(launches > 0, f"{name} was not launched on a main path")
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches,
-            "launches_serving": serving_launches[name],
-            "launches_fusion": fusion_launches[name],
+            **{f"launches_{phase}": counts[name] for phase, counts in main_paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": per_fwd("kernel_ms"), "plain_ms": per_fwd("plain_ms"),
             "bound_ms": per_fwd("bound_ms"),
@@ -620,13 +928,16 @@ def main() -> None:
     dev = phase_device()
     phase_build()
     pred = make_predictor()
+    httpd, batcher = make_pair_server()
     images = [synthetic_tp_sample(i)[0] for i in range(BATCH)]
-    records = phase_kernels(pred, images)
+    records = phase_kernels(pred, batcher.predictor, images)
     phase_edges()
-    serving = phase_serving(pred, dev)
-    fusion = phase_fusion(pred.model, dev)
+    main_paths = {"serving": phase_serving(pred, dev)["launches"],
+                  "fusion": phase_fusion(pred.model, dev)["launches"],
+                  "serve": phase_serve(httpd, batcher, pred, dev)["launches"],
+                  "predict_cli": phase_predict_cli(dev)["launches"]}
     phase_card_vs_cpu()
-    kernels = summary(records, serving["launches"], fusion["launches"])
+    kernels = summary(records, main_paths)
     print(dev["nvidia_smi"])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

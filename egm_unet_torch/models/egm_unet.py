@@ -49,15 +49,20 @@ class DoubleConv1(nn.Module):
 
 class EGMUNet(nn.Module):
     """``block='edge', use_rga=True, use_mca=True`` is the published A+B+C
-    configuration; the decoder is the bilinear one.  Input NHWC float with
-    3 channels; returns ``{"out": float32 logits}``."""
+    configuration; the decoder is the bilinear one.  ``conv_impl`` and
+    ``upsample_impl`` pick the route of the stem and decoder ``DoubleConv``s
+    (``nn.layers.DoubleConv``); the encoder stages hold an MCALayer between
+    their convs and always take ``conv3x3_gemm``.  Input NHWC float with 3
+    channels; returns ``{"out": float32 logits}``."""
 
     def __init__(self, num_classes: int = 2, base_c: int = 32,
                  block: Optional[str] = "edge", use_rga: bool = True,
-                 use_mca: bool = True):
+                 use_mca: bool = True, conv_impl: str = "gemm",
+                 upsample_impl: str = "matmul"):
         super().__init__()
         c = base_c
-        self.in_conv = DoubleConv(3, c)
+        impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl)
+        self.in_conv = DoubleConv(3, c, **impls)
 
         def down(cin, cout):
             return DoubleConv1(cin, cout, block=block, use_mca=use_mca)
@@ -67,10 +72,10 @@ class EGMUNet(nn.Module):
         self.down3 = down(4 * c, 8 * c)
         self.down4 = down(8 * c, 8 * c)
         self.attn1 = RecursiveGatedAttention(dim=8 * c) if use_rga else None
-        self.up1 = Up(8 * c, 8 * c, 4 * c)
-        self.up2 = Up(4 * c, 4 * c, 2 * c)
-        self.up3 = Up(2 * c, 2 * c, c)
-        self.up4 = Up(c, c, c)
+        self.up1 = Up(8 * c, 8 * c, 4 * c, **impls)
+        self.up2 = Up(4 * c, 4 * c, 2 * c, **impls)
+        self.up3 = Up(2 * c, 2 * c, c, **impls)
+        self.up4 = Up(c, c, c, **impls)
         self.out_conv = Conv(c, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> dict:

@@ -37,18 +37,25 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def create_model(name: str = "egm_unet", num_classes: int = 2, base_c: int = 32,
                  generator: Optional[torch.Generator] = None,
-                 bilinear: bool = True) -> nn.Module:
+                 bilinear: bool = True, conv_impl: str = "gemm",
+                 upsample_impl: str = "matmul") -> nn.Module:
     """The BN-folded inference graph of ``name`` (the only graph ported; fold
     BN statistics with ``models.fold_bn.fold_bn_variables``).  Load weights
     with ``utils.from_flax.load_flax_variables``, or draw them from
     ``generator``.  ``bilinear=False`` (``"unet"`` only) selects the
-    transposed-conv decoder."""
+    transposed-conv decoder.  ``conv_impl`` (``"gemm"`` | ``"pair"``) and
+    ``upsample_impl`` (``"matmul"`` | ``"fused"``) pick the kernels of every
+    ``DoubleConv`` and ``Up`` (``nn.layers.DoubleConv``); parameters and
+    state dicts are the same on every route."""
+    impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl)
     if name == "unet":
-        model = UNet(num_classes=num_classes, bilinear=bilinear, base_c=base_c)
+        model = UNet(num_classes=num_classes, bilinear=bilinear, base_c=base_c,
+                     **impls)
     elif name in MODEL_CONFIGS:
         if not bilinear:
             raise ValueError("the EGM-UNet family has the bilinear decoder only")
-        model = EGMUNet(num_classes=num_classes, base_c=base_c, **MODEL_CONFIGS[name])
+        model = EGMUNet(num_classes=num_classes, base_c=base_c, **impls,
+                        **MODEL_CONFIGS[name])
     else:
         raise ValueError(f"unknown model {name!r}; choose from "
                          f"{['unet', *MODEL_CONFIGS]}")

@@ -19,20 +19,24 @@ class Up(nn.Module):
 
     ``bilinear=True``: 2x bilinear (align_corners) upsample.  When x2 is
     exactly twice x1's size (every bucketed serving shape) the upsample,
-    concat and first conv are one ``up_concat_conv`` launch; otherwise the
-    upsampled x1 is padded to x2 first.  ``bilinear=False``: a 2x2 / stride 2
+    concat and first conv are one ``up_concat_conv`` launch on the default
+    route (``DoubleConv`` lists the others); otherwise the upsampled x1 (by
+    ``upsample_impl``) is padded to x2 first.  ``bilinear=False``: a 2x2 / stride 2
     transposed conv ``up_kernel`` (in1, 2, 2, in1 // 2), a per-pixel matmul
     and pixel shuffle."""
 
-    def __init__(self, in1: int, in2: int, features: int, bilinear: bool = True):
+    def __init__(self, in1: int, in2: int, features: int, bilinear: bool = True,
+                 conv_impl: str = "gemm", upsample_impl: str = "matmul"):
         super().__init__()
         self.bilinear = bilinear
+        self.upsample_impl = upsample_impl
+        impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl)
         if bilinear:
             self.DoubleConv_0 = DoubleConv(in1 + in2, features,
-                                           mid_features=(in1 + in2) // 2)
+                                           mid_features=(in1 + in2) // 2, **impls)
         else:
             self.up_kernel = nn.Parameter(torch.zeros(in1, 2, 2, in1 // 2))
-            self.DoubleConv_0 = DoubleConv(in1 // 2 + in2, features)
+            self.DoubleConv_0 = DoubleConv(in1 // 2 + in2, features, **impls)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         if not self.bilinear:
@@ -42,7 +46,7 @@ class Up(nn.Module):
         if self.bilinear:
             if x2.shape[1] == 2 * x1.shape[1] and x2.shape[2] == 2 * x1.shape[2]:
                 return self.DoubleConv_0(up_pair=(x2, x1))
-            x1 = upsample2x_bilinear_align_corners(x1)
+            x1 = upsample2x_bilinear_align_corners(x1, self.upsample_impl)
         else:
             x1 = conv_transpose2d_nonoverlap(x1, self.up_kernel)
         x1 = pad_to_match(x1, x2)
@@ -53,19 +57,21 @@ class UNet(nn.Module):
     """Input NHWC float; returns ``{"out": float32 logits}``."""
 
     def __init__(self, in_channels: int = 3, num_classes: int = 2,
-                 bilinear: bool = True, base_c: int = 64):
+                 bilinear: bool = True, base_c: int = 64,
+                 conv_impl: str = "gemm", upsample_impl: str = "matmul"):
         super().__init__()
         c = base_c
         factor = 2 if bilinear else 1
-        self.in_conv = DoubleConv(in_channels, c)
-        self.down1 = DoubleConv(c, 2 * c)
-        self.down2 = DoubleConv(2 * c, 4 * c)
-        self.down3 = DoubleConv(4 * c, 8 * c)
-        self.down4 = DoubleConv(8 * c, 16 * c // factor)
-        self.up1 = Up(16 * c // factor, 8 * c, 8 * c // factor, bilinear)
-        self.up2 = Up(8 * c // factor, 4 * c, 4 * c // factor, bilinear)
-        self.up3 = Up(4 * c // factor, 2 * c, 2 * c // factor, bilinear)
-        self.up4 = Up(2 * c // factor, c, c, bilinear)
+        impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl)
+        self.in_conv = DoubleConv(in_channels, c, **impls)
+        self.down1 = DoubleConv(c, 2 * c, **impls)
+        self.down2 = DoubleConv(2 * c, 4 * c, **impls)
+        self.down3 = DoubleConv(4 * c, 8 * c, **impls)
+        self.down4 = DoubleConv(8 * c, 16 * c // factor, **impls)
+        self.up1 = Up(16 * c // factor, 8 * c, 8 * c // factor, bilinear, **impls)
+        self.up2 = Up(8 * c // factor, 4 * c, 4 * c // factor, bilinear, **impls)
+        self.up3 = Up(4 * c // factor, 2 * c, 2 * c // factor, bilinear, **impls)
+        self.up4 = Up(2 * c // factor, c, c, bilinear, **impls)
         self.out_conv = Conv(c, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> dict:

@@ -10,6 +10,10 @@ by name.
 Every 3x3 / stride 1 / pad 1 / dilation 1 / groups 1 conv of a ConvBNReLU
 or BasicConv goes through the ``conv3x3_gemm`` kernel, at any channel count;
 the decoder's first conv (``up_pair``) goes through ``up_concat_conv``.
+``DoubleConv`` has two alternative routes, chosen when the model is built:
+``conv_impl="pair"`` sends both of its convs through one
+``conv3x3_pair_gemm`` launch, and ``upsample_impl="fused"`` upsamples the
+decoder's low-resolution input with ``upsample2x_fused`` before the concat.
 """
 
 from __future__ import annotations
@@ -22,9 +26,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from egm_unet_torch.ops.conv import conv2d
-from egm_unet_torch.ops.cuda.conv3x3 import conv3x3_gemm
+from egm_unet_torch.ops.cuda.conv3x3 import conv3x3_gemm, conv3x3_pair_gemm
 from egm_unet_torch.ops.cuda.upconv import up_concat_conv
 from egm_unet_torch.ops.pooling import avg_pool2d
+from egm_unet_torch.ops.resize import (UPSAMPLE_IMPLS,
+                                       upsample2x_bilinear_align_corners)
+
+CONV_IMPLS = ("gemm", "pair")
 
 
 def _pair(v):
@@ -179,16 +187,47 @@ class ConvBNReLU(nn.Module):
 
 
 class DoubleConv(nn.Module):
-    """(conv3x3 -> ReLU) x 2 with an optional mid width."""
+    """(conv3x3 -> ReLU) x 2 with an optional mid width.  ``up_pair=(x2,
+    x1)`` is the decoder form on ``concat([x2, up2x(x1)])``, x2 exactly twice
+    x1's size.
 
-    def __init__(self, in_ch: int, features: int, mid_features: Optional[int] = None):
+    Routes (the parameters are the same on all of them):
+
+    - ``conv_impl="gemm"``, ``upsample_impl="matmul"`` (default): one
+      ``conv3x3_gemm`` launch per conv; with ``up_pair`` the first is one
+      ``up_concat_conv`` launch.
+    - ``conv_impl="pair"``: both convs in one ``conv3x3_pair_gemm`` launch;
+      with ``up_pair`` the upsample (by ``upsample_impl``) and the concat
+      come first, as plain tensor ops.
+    - ``conv_impl="gemm"``, ``upsample_impl="fused"``: with ``up_pair``,
+      ``upsample2x_fused``, concat, then two ``conv3x3_gemm`` launches.
+    """
+
+    def __init__(self, in_ch: int, features: int, mid_features: Optional[int] = None,
+                 conv_impl: str = "gemm", upsample_impl: str = "matmul"):
         super().__init__()
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"unknown conv impl {conv_impl!r}; choose from "
+                             f"{list(CONV_IMPLS)}")
+        if upsample_impl not in UPSAMPLE_IMPLS:
+            raise ValueError(f"unknown upsample impl {upsample_impl!r}; choose "
+                             f"from {list(UPSAMPLE_IMPLS)}")
+        self.conv_impl, self.upsample_impl = conv_impl, upsample_impl
         mid = mid_features or features
         self.ConvBNReLU_0 = ConvBNReLU(in_ch, mid)
         self.ConvBNReLU_1 = ConvBNReLU(mid, features)
 
     def forward(self, x: Optional[torch.Tensor] = None, *,
                 up_pair=None) -> torch.Tensor:
+        if up_pair is not None and (self.conv_impl == "pair"
+                                    or self.upsample_impl == "fused"):
+            x2, x1 = up_pair
+            up = upsample2x_bilinear_align_corners(x1, self.upsample_impl)
+            x, up_pair = torch.cat([x2, up], dim=-1), None
+        if self.conv_impl == "pair":
+            c1, c2 = self.ConvBNReLU_0.Conv_0, self.ConvBNReLU_1.Conv_0
+            return conv3x3_pair_gemm(x.contiguous(), c1.kernel, c1.bias,
+                                     c2.kernel, c2.bias)
         return self.ConvBNReLU_1(self.ConvBNReLU_0(x, up_pair=up_pair))
 
 

@@ -26,14 +26,13 @@ from egm_unet_torch.ops.cuda import build
 from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
                                             check_same_device, stream_handle)
 from egm_unet_torch.ops.cuda.conv3x3 import conv3x3_plain
-from egm_unet_torch.ops.resize import (linear_taps,
-                                       upsample2x_bilinear_align_corners)
+from egm_unet_torch.ops.resize import (upsample2x_bilinear_align_corners,
+                                       upsample2x_taps)
 
 launches = 0  # kernel launches since the last reset
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_TAPS = {}  # (n_in, dtype, device) -> device tap tables
 
 
 def _check(x2, x1, kernel, bias):
@@ -66,16 +65,6 @@ def up_concat_conv_plain(x2: torch.Tensor, x1: torch.Tensor,
     return conv3x3_plain(cat, kernel, bias.to(x1.dtype), relu=True)
 
 
-def _taps(n_in: int, dtype: torch.dtype, device: torch.device):
-    key = (n_in, dtype, device)
-    if key not in _TAPS:
-        lo, hi, w_lo, w_hi = linear_taps(n_in, 2 * n_in, True)
-        cast = lambda a: torch.from_numpy(a).to(dtype).float().to(device)
-        _TAPS[key] = (torch.from_numpy(lo).to(device),
-                      torch.from_numpy(hi).to(device), cast(w_lo), cast(w_hi))
-    return _TAPS[key]
-
-
 def up_concat_conv(x2: torch.Tensor, x1: torch.Tensor, kernel: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """x1 (B, h, w, C1), x2 (B, 2h, 2w, C2), contiguous, one dtype (float32
@@ -90,8 +79,8 @@ def up_concat_conv(x2: torch.Tensor, x1: torch.Tensor, kernel: torch.Tensor,
     co = kernel.shape[-1]
     kq = kernel.to(x1.dtype).contiguous()
     bq = bias.to(x1.dtype).float().contiguous()
-    rows = _taps(h, x1.dtype, x1.device)
-    cols = _taps(w, x1.dtype, x1.device)
+    rows = upsample2x_taps(h, x1.dtype, x1.device)
+    cols = upsample2x_taps(w, x1.dtype, x1.device)
     out = torch.empty((b, 2 * h, 2 * w, co), dtype=x1.dtype, device=x1.device)
     lib = build.load("up_concat_conv")
     fn = lib.egm_up_concat_conv

@@ -63,6 +63,22 @@ def linear_taps(n_in: int, n_out: int, align_corners: bool = True):
     return lo, hi, w_lo, w_hi
 
 
+_DEVICE_TAPS = {}  # (n_in, weight dtype, device) -> tap tables on the device
+
+
+def upsample2x_taps(n_in: int, dtype: torch.dtype, device: torch.device):
+    """``linear_taps(n_in, 2 * n_in)`` as tensors on ``device``, made once:
+    int32 ``lo`` and ``hi``, and float32 ``w_lo`` and ``w_hi`` holding the
+    weights rounded to ``dtype``."""
+    key = (n_in, dtype, device)
+    if key not in _DEVICE_TAPS:
+        lo, hi, w_lo, w_hi = linear_taps(n_in, 2 * n_in, True)
+        cast = lambda a: torch.from_numpy(a).to(dtype).float().to(device)
+        _DEVICE_TAPS[key] = (torch.from_numpy(lo).to(device),
+                             torch.from_numpy(hi).to(device), cast(w_lo), cast(w_hi))
+    return _DEVICE_TAPS[key]
+
+
 def _cubic_weight(t: np.ndarray, a: float = -0.75) -> np.ndarray:
     """Keys cubic kernel with ``a = -0.75``."""
     t = np.abs(t)
@@ -149,8 +165,23 @@ def resize_nearest(x: torch.Tensor, out_hw, mode: str = "torch") -> torch.Tensor
     return x
 
 
-def upsample2x_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:
+UPSAMPLE_IMPLS = ("matmul", "fused")
+
+
+def upsample2x_bilinear_align_corners(x: torch.Tensor,
+                                      impl: str | None = None) -> torch.Tensor:
     """The UNet decoder's ``Upsample(scale_factor=2, align_corners=True)``,
-    NHWC."""
+    NHWC.  ``impl``: ``"matmul"`` (default), the two interpolation-matrix
+    products above, or ``"fused"``, the one-pass ``upsample2x_fused`` kernel
+    (``ops/cuda/resize2x.py``), which rounds columns first and so differs
+    from the matmul form by a few rounding steps in bfloat16."""
+    impl = impl or "matmul"
+    if impl == "fused":
+        from egm_unet_torch.ops.cuda.resize2x import upsample2x_fused
+
+        return upsample2x_fused(x.contiguous())
+    if impl != "matmul":
+        raise ValueError(f"unknown upsample impl {impl!r}; choose from "
+                         f"{list(UPSAMPLE_IMPLS)}")
     return resize_bilinear(x, (2 * x.shape[1], 2 * x.shape[2]),
                            align_corners=True)

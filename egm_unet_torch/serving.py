@@ -40,6 +40,10 @@ class PredictorConfig:
     batch_size: int = 128
     base_size: int = 565  # short-side resize, like the reference eval
     dtype: str = "bfloat16"
+    # kernel routes of the DoubleConvs (models.registry.create_model):
+    # "gemm" | "pair", and "matmul" | "fused"
+    conv_impl: str = "gemm"
+    upsample_impl: str = "matmul"
 
 
 class Predictor:
@@ -54,15 +58,30 @@ class Predictor:
         self.device = resolve_device(device)
         self.cfg = config
         self.dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+        kw = dict(num_classes=config.num_classes, base_c=config.base_c,
+                  conv_impl=config.conv_impl, upsample_impl=config.upsample_impl)
         if variables is None:
-            model = create_model(config.model_name, num_classes=config.num_classes,
-                                 base_c=config.base_c,
+            model = create_model(config.model_name, **kw,
                                  generator=generator or torch.Generator().manual_seed(0))
         else:
-            model = load_flax_variables(create_model(
-                config.model_name, num_classes=config.num_classes,
-                base_c=config.base_c), variables)
+            model = load_flax_variables(create_model(config.model_name, **kw),
+                                        variables)
         self.model = model.to(self.device, self.dtype).eval()
+
+    @classmethod
+    def from_checkpoint(cls, path: str, config: PredictorConfig = PredictorConfig(),
+                        *, device=None) -> "Predictor":
+        """A predictor on the weights in ``path``: a file holding the
+        ``state_dict`` of ``create_model(config.model_name, ...)`` as
+        ``torch.save`` wrote it (what ``cli/eval_clipseg.py --unet-weights``
+        loads too; the names are the same on every kernel route).  The JAX
+        package's orbax checkpoint directories are not read here: that
+        belongs to ``utils/checkpoint.py``, which comes with the training
+        slice."""
+        pred = cls(config=config, device=device)
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        pred.model.load_state_dict(state)
+        return pred
 
     def _preprocess(self, image: np.ndarray) -> np.ndarray:
         resized, _ = resize_short_side(image, None, self.cfg.base_size)

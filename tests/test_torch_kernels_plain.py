@@ -1,10 +1,13 @@
-"""The plain PyTorch versions of the port's three CUDA kernels against the
-JAX package's Pallas kernels, run in interpret mode on the CPU as the JAX
+"""The plain PyTorch versions of the port's CUDA kernels K1, K2 and K5 against
+the JAX package's Pallas kernels, run in interpret mode on the CPU as the JAX
 tests run them, and the wrappers' CPU routing and argument checks.
 
 Tolerances: float32 agrees to 1e-5 (the same float32 products summed in
 another order); bfloat16 to one bfloat16 rounding step (2**-7 relative) of
-the output's magnitude, since the two round the same float32 values."""
+the output's magnitude, since the two round the same float32 values.  K3's
+and K4's plain versions are held against their Pallas kernels in
+test_torch_routes.py; their wrappers' CPU routing, argument checks and tile
+choice are here."""
 
 import numpy as np
 import pytest
@@ -16,7 +19,8 @@ from egm_unet_tpu.ops.pallas.conv3x3 import conv3x3_gemm as jconv3x3
 from egm_unet_tpu.ops.pallas.mca import mca_fused as jmca
 from egm_unet_tpu.ops.pallas.upconv import up_concat_conv as jupconv
 
-from egm_unet_torch.ops.cuda import conv3x3, launch_counts, mca, upconv
+from egm_unet_torch.ops.cuda import (conv3x3, launch_counts, mca, reset_launch_counts,
+                                     resize2x, upconv)
 
 from tests.torch_port_util import assert_close, to_torch
 
@@ -121,3 +125,83 @@ def test_wrappers_reject_bad_arguments():
     with pytest.raises(TypeError):
         upconv.up_concat_conv(torch.zeros(1, 12, 16, 4).bfloat16(), x,
                               torch.zeros(3, 3, 12, 4), b)
+
+
+def test_pair_and_upsample_wrappers_take_the_plain_path_on_cpu():
+    rng = np.random.default_rng(5)
+    before = launch_counts()
+    assert set(before) == {"conv3x3_gemm", "conv3x3_pair_gemm", "mca_fused",
+                           "up_concat_conv", "upsample2x_fused", "csa_attention"}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = to_torch(_rand(rng, (1, 6, 8, 8))).to(dtype)
+        w1, b1 = to_torch(_rand(rng, (3, 3, 8, 5), 0.2)), to_torch(_rand(rng, (5,)))
+        w2, b2 = to_torch(_rand(rng, (3, 3, 5, 4), 0.2)), to_torch(_rand(rng, (4,)))
+        out = conv3x3.conv3x3_pair_gemm(x, w1, b1, w2, b2)
+        assert out.dtype == dtype and out.shape == (1, 6, 8, 4)
+        torch.testing.assert_close(out, conv3x3.conv3x3_pair_plain(x, w1, b1, w2, b2),
+                                   rtol=0, atol=0)
+        up = resize2x.upsample2x_fused(x)
+        assert up.dtype == dtype and up.shape == (1, 12, 16, 8)
+        torch.testing.assert_close(up, resize2x.upsample2x_plain(x), rtol=0, atol=0)
+    assert launch_counts() == before  # no kernel ran
+
+
+def test_launch_counters_reset_by_name():
+    conv3x3.pair_launches, resize2x.launches, conv3x3.launches = 3, 2, 1
+    counts = launch_counts()
+    assert (counts["conv3x3_pair_gemm"], counts["upsample2x_fused"],
+            counts["conv3x3_gemm"]) == (3, 2, 1)
+    reset_launch_counts()
+    assert not any(launch_counts().values())
+
+
+def test_pair_and_upsample_wrappers_reject_bad_arguments():
+    x = torch.zeros(1, 6, 8, 8)
+    w1, b1, w2, b2 = (torch.zeros(3, 3, 8, 5), torch.zeros(5), torch.zeros(3, 3, 5, 4),
+                      torch.zeros(4))
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_pair_gemm(x, torch.zeros(3, 3, 7, 5), b1, w2, b2)  # C mismatch
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_pair_gemm(x, w1, b1, torch.zeros(3, 3, 6, 4), b2)  # Cm mismatch
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_pair_gemm(x, w1, torch.zeros(4), w2, b2)
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_pair_gemm(x, w1, b1, w2, torch.zeros(5))
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_pair_gemm(x[0], w1, b1, w2, b2)  # not 4-D
+    with pytest.raises(TypeError):
+        conv3x3.conv3x3_pair_gemm(x.double(), w1, b1, w2, b2)
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_pair_gemm(x.permute(0, 2, 1, 3), w1, b1, w2, b2)  # strided
+    with pytest.raises(ValueError):
+        resize2x.upsample2x_fused(x[0])
+    with pytest.raises(TypeError):
+        resize2x.upsample2x_fused(x.half())
+    with pytest.raises(ValueError):
+        resize2x.upsample2x_fused(x.permute(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("cm,co,itemsize,tile", [
+    (32, 32, 2, (8, 16, 32)),      # the stem and up4: narrow sub-tiles
+    (64, 32, 2, (8, 16, 64)),
+    (256, 128, 2, (8, 16, 64)),    # up1 in bfloat16: 92 KB
+    (256, 128, 4, (8, 16, 64)),    # up1 in float32: 184 KB
+    (512, 256, 2, (8, 16, 64)),    # vanilla unet, base_c 64, bfloat16
+    (512, 256, 4, (8, 8, 64)),     # ... in float32: 360 KB at 8x16, 200 KB at 8x8
+    (1300, 8, 4, (4, 4, 64)),
+    (3000, 4, 4, (2, 2, 64)),
+])
+def test_pair_tile_fits_shared_memory(cm, co, itemsize, tile):
+    assert conv3x3.pair_tile(cm, co, itemsize) == tile
+    th, tw, bn = tile
+    need = 4 * 16 * (68 + bn) + (th + 2) * (tw + 2) * cm * itemsize
+    assert need <= conv3x3.PAIR_SMEM_LIMIT
+
+
+def test_pair_tile_refuses_what_cannot_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        conv3x3.pair_tile(4000, 8, 4)
+    needed, executed = conv3x3.pair_flops((8, 72, 96, 512), 256, 128, 2)
+    assert needed == 2.0 * 8 * 72 * 96 * 9 * (512 * 256 + 256 * 128)
+    # 8x16 tiles: conv1 on 192 padded halo rows per 128 pixels
+    assert executed == 2.0 * 8 * 9 * 6 * (192 * 256 * 4608 + 128 * 128 * 2304)

@@ -18,12 +18,22 @@ shapes the main paths give it, and drives the main paths at full width:
 It then checks the card against the CPU on small inputs, for the UNets on
 every route and for a small CLIPSeg.
 
+``conv3x3_pair_gemm`` and ``csa_attention`` have two hand-written kernels
+each, chosen by dtype: bfloat16 multiplies on the tensor cores (``mma_bf16``),
+float32 on the CUDA cores (``cuda_cores_f32``).  Their ``kernel`` records
+carry the wrapper's choice as ``variant``, and the run fails if a bfloat16
+record is not ``mma_bf16``.  ``csa_attention``'s path record is taken as the
+transformer blocks give it, on the three ``chunk`` views of one fused
+``in_proj`` output (``layout: in_proj_views``); a record on contiguous tensors
+stands beside it.
+
     python3 chip_smoke.py
 
 Needs one CUDA GPU and ``nvcc``; exits non-zero, printing no result, without
 them.  Each phase prints one JSON line; the last three lines are the card's
 ``nvidia-smi`` name and power limit, the per-kernel summary, and
-``{"ok": true, "device": {...}}``.  Per-shape kernel records also go to
+``{"ok": true, "device": {...}}``.  Every printed record also goes to
+``chiprun_out/chip_smoke_records.jsonl``, the per-shape kernel records to
 ``chiprun_out/chip_smoke_kernels.jsonl``.
 
 float32 checks run with TF32 off (``torch.backends.cudnn.allow_tf32`` and
@@ -110,7 +120,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(OUT_DIR / "chip_smoke_records.jsonl", "a") as f:
+        f.write(line + "\n")
 
 
 def fail(msg: str) -> None:
@@ -153,7 +166,6 @@ def bound(nb: int, flops: float, dtype) -> tuple:
 # --------------------------------------------------------------- phases
 
 def phase_device() -> dict:
-    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -174,7 +186,6 @@ def phase_build() -> None:
     info = build.build_all()
     regs = {name: [ln.strip() for ln in i["ptxas"].splitlines() if "registers" in ln]
             for name, i in info.items()}
-    OUT_DIR.mkdir(exist_ok=True)
     for name, i in info.items():
         (OUT_DIR / f"ptxas_{name}.txt").write_text(i["ptxas"])
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
@@ -272,7 +283,8 @@ def pair_site_calls(mod, args, kwargs, cast) -> list:
                   lambda: conv3x3.conv3x3_pair_plain(x, w1, b1, w2, b2), library,
                   nbytes(x, w1, w2, b1, b2) + out_numel * x.element_size(), needed,
                   x.dtype, {"executed_flops": executed,
-                            "tile": list(conv3x3.pair_tile(cm, co, x.element_size()))}))
+                            "tile": list(conv3x3.pair_tile(x.shape[-1], cm, co, x.element_size())),
+                            "variant": conv3x3.pair_variant(x.dtype)}))
     return calls
 
 
@@ -326,22 +338,31 @@ def site_call(site, cast):
             2.0 * out_numel * 9 * x.shape[-1], x.dtype)
 
 
-def csa_call(shape, dtype, seed: int = SEED):
+def csa_call(shape, dtype, seed: int = SEED, views: bool = False):
     """The K6 call at ``shape`` = (B, S, D, heads) on seeded inputs, in the
-    form ``kernel_record`` takes.  The library yardstick is two
-    ``scaled_dot_product_attention`` calls and an add, timed only."""
+    form ``kernel_record`` takes.  ``views``: q, k, v are the three ``chunk``
+    views of one [B, S, 3 D] tensor, as a transformer block's fused
+    ``in_proj`` hands them over; otherwise three contiguous tensors.  The
+    library yardstick is two ``scaled_dot_product_attention`` calls and an
+    add on the same tensors, timed only."""
     b, s_, d, h = shape
     gen = torch.Generator().manual_seed(seed)
     q, k, v = [(torch.randn(b, s_, d, generator=gen) * sc).to(dtype).cuda()
                for sc in (1.5, 1.0, 1.0)]
-    heads = lambda t: t.view(b, s_, h, d // h).transpose(1, 2)
+    if views:
+        q, k, v = torch.cat([q, k, v], dim=-1).chunk(3, dim=-1)
+        check(not q.is_contiguous() and k.data_ptr() == q.data_ptr()
+              + d * q.element_size(), "q, k, v are not views of one tensor")
+    heads = lambda t: t.unflatten(-1, (h, d // h)).transpose(1, 2)
 
     def library():
         return (F.scaled_dot_product_attention(heads(q), heads(q), heads(v))
                 + F.scaled_dot_product_attention(heads(k), heads(k), heads(v)))
     return ("csa_attention", ("csa", (b, s_, d), h, str(dtype)),
             lambda: csa.csa_attention(q, k, v, h), lambda: csa.csa_plain(q, k, v, h),
-            library, 4 * nbytes(q), 6.0 * b * h * s_ * s_ * (d // h), dtype)
+            library, 4 * nbytes(q), 6.0 * b * h * s_ * s_ * (d // h), dtype,
+            {"variant": csa.csa_variant(dtype),
+             "layout": "in_proj_views" if views else "contiguous"})
 
 
 def compare(kernel_fn, plain_fn, dtype) -> tuple:
@@ -410,13 +431,21 @@ def phase_kernels(pred, pair_pred, images) -> list:
         records.append(kernel_record(rec["site"], call, 5))
     del sites, seen, firsts
     torch.cuda.empty_cache()
-    # K6 at the CLIPSeg forward's shape: ten sites in bf16, and once in float32
+    # K6 at the CLIPSeg forward's shape, as the blocks give it (the chunk views
+    # of in_proj's output): ten sites in bf16; once on contiguous tensors and
+    # once in float32 beside it
     site = "clip.visual.resblock0..9"
-    records.append(kernel_record(site, csa_call(CSA_PATH_SHAPE, torch.bfloat16), 10,
-                                 sites_per_forward=PER_CLIPSEG_FORWARD["csa_attention"]))
-    records.append(kernel_record(site, csa_call(CSA_PATH_SHAPE, torch.float32), 5))
+    records.append(kernel_record(
+        site, csa_call(CSA_PATH_SHAPE, torch.bfloat16, views=True), 10,
+        sites_per_forward=PER_CLIPSEG_FORWARD["csa_attention"]))
+    records.append(kernel_record(site, csa_call(CSA_PATH_SHAPE, torch.bfloat16), 10))
+    records.append(kernel_record(site, csa_call(CSA_PATH_SHAPE, torch.float32, views=True), 5))
     torch.cuda.empty_cache()
-    OUT_DIR.mkdir(exist_ok=True)
+    for r in records:
+        if r["name"] in ("conv3x3_pair_gemm", "csa_attention"):
+            want = "mma_bf16" if r["dtype"] == "bfloat16" else "cuda_cores_f32"
+            check(r.get("variant") == want,
+                  f"{r['name']} {r['dtype']} at {r['site']}: variant {r.get('variant')}")
     with open(OUT_DIR / "chip_smoke_kernels.jsonl", "w") as f:
         for r in records:
             f.write(json.dumps(r) + "\n")
@@ -426,7 +455,8 @@ def phase_kernels(pred, pair_pred, images) -> list:
 def phase_edges() -> None:
     """Each kernel against its plain version at small odd shapes: partial
     pixel and channel tiles, C=3, every output-width tile config; for K6,
-    sequence lengths off the 64-row tiles and every head-width template; for
+    sequence lengths off the 64-row tiles, every head-width template, and
+    strided views on and off the 16-byte grid; for
     the pair kernel, maps smaller than a tile (down to 1x1), Cm != Co, and
     mid widths that force each smaller tile (400 and 800: 8x8 in float32 and
     bfloat16; 1300: 4x4; 3000: 2x2 in float32); for the upsample, odd sizes,
@@ -460,7 +490,13 @@ def phase_edges() -> None:
                                      (1, 2, 2, 3, 8, 6), (1, 3, 3, 5, 20, 33),
                                      (2, 17, 19, 33, 70, 40), (1, 5, 30, 16, 32, 32),
                                      (1, 9, 9, 8, 400, 16), (1, 9, 9, 8, 800, 16),
-                                     (1, 5, 5, 8, 1300, 8), (1, 4, 4, 4, 3000, 4)):
+                                     (1, 5, 5, 8, 1300, 8), (1, 4, 4, 4, 3000, 4),
+                                     # the stem's class (C % 8 != 0, Cm % 8 == 0), odd map
+                                     (2, 23, 37, 3, 32, 32), (1, 19, 21, 40, 72, 24),
+                                     # 128-column chunks; resident weights, 64 / 32
+                                     # columns; 16x16 tiles
+                                     (1, 9, 20, 16, 200, 24), (1, 9, 20, 16, 208, 136),
+                                     (1, 11, 18, 8, 40, 24), (2, 17, 19, 32, 72, 40)):
             x = rnd(b_, h, w_, c).to(dtype)
             w1, w2 = rnd(3, 3, c, cm, scale=(2 / (9 * c)) ** 0.5), rnd(
                 3, 3, cm, co, scale=(2 / (9 * cm)) ** 0.5)
@@ -468,6 +504,11 @@ def phase_edges() -> None:
             cases.append(("conv3x3_pair_gemm",
                           lambda a=(x, w1, b1, w2, b2): conv3x3.conv3x3_pair_gemm(*a),
                           lambda a=(x, w1, b1, w2, b2): conv3x3.conv3x3_pair_plain(*a)))
+        # the last case again with x off the 16-byte grid: no tile of the TMA unit
+        x = rnd(x.numel() + 1).to(dtype)[1:].view(x.shape)
+        cases.append(("conv3x3_pair_gemm",
+                      lambda a=(x, w1, b1, w2, b2): conv3x3.conv3x3_pair_gemm(*a),
+                      lambda a=(x, w1, b1, w2, b2): conv3x3.conv3x3_pair_plain(*a)))
         ups = [rnd(*shape).to(dtype) for shape in ((2, 5, 7, 3), (1, 1, 4, 8),
                                                    (2, 9, 13, 16), (1, 3, 1, 40))]
         ups.append(rnd(2 * 6 * 5 * 16 + 1).to(dtype)[1:].view(2, 6, 5, 16))  # unaligned
@@ -477,6 +518,12 @@ def phase_edges() -> None:
         for shape in ((2, 10, 32, 4), (1, 64, 64, 1), (1, 17, 64, 2),
                       (3, 197, 768, 12), (2, 70, 200, 2)):  # head widths 8..100
             call = csa_call(shape, dtype, seed=SEED + 1)
+            cases.append((call[0], call[2], call[3]))
+        # strided views: 64-wide heads, head widths off the 16-byte grid (100,
+        # 9: an odd base for k and v), S < 16, S on and just past a key tile
+        for shape in ((2, 100, 128, 2), (2, 70, 200, 2), (3, 33, 27, 3),
+                      (2, 5, 64, 1), (1, 64, 128, 2), (1, 65, 128, 2)):
+            call = csa_call(shape, dtype, seed=SEED + 2, views=True)
             cases.append((call[0], call[2], call[3]))
         for name, kfn, pfn in cases:
             err, tol, _ = compare(kfn, pfn, dtype)
@@ -645,7 +692,7 @@ def phase_serve(httpd, batcher, pred, dev) -> dict:
            "foreground_share": float(np.mean([(mk > 0).mean() for mk in masks]))}
     emit(rec)
     phase_profile("serve_profile", lambda: pair_pred.forward(x), "serve_profile.txt",
-                  {"conv3x3_pair_gemm": "conv3x3_pair_kernel",
+                  {"conv3x3_pair_gemm": "pair_mma_kernel",
                    "upsample2x_fused": "upsample2x_kernel",
                    "conv3x3_gemm": "igemm3x3_kernel", "mca_fused": "mca_fused_kernel"})
     return rec
@@ -692,7 +739,8 @@ def phase_predict_cli(dev) -> dict:
 
 def phase_profile(phase: str, forward, out_name: str, patterns: dict) -> dict:
     """Device time of one call of ``forward`` by kernel, from torch.profiler;
-    ``patterns`` names the kernels whose time is summed by substring."""
+    ``patterns`` names the kernels whose time and launches are summed by
+    substring."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -712,13 +760,14 @@ def phase_profile(phase: str, forward, out_name: str, patterns: dict) -> dict:
     device_ms = sum(r[0] for r in rows)
     by_kernel = {name: sum(r[0] for r in rows if pat in r[2])
                  for name, pat in patterns.items()}
-    OUT_DIR.mkdir(exist_ok=True)
+    calls = {name: sum(r[1] for r in rows if pat in r[2]) for name, pat in patterns.items()}
     (OUT_DIR / out_name).write_text(
         f"wall {wall_ms:.3f} ms, device {device_ms:.3f} ms\n"
         + "\n".join(f"{ms:10.3f} ms {n:5d}x  {k}" for ms, n, k in rows) + "\n")
     rec = {"phase": phase, "wall_ms": wall_ms, "device_ms": device_ms,
            "device_idle_share": None if not rows else max(0.0, 1 - device_ms / wall_ms),
-           "by_kernel_ms": by_kernel,
+           "by_kernel_ms": by_kernel, "by_kernel_launches": calls,
+           "launches": sum(r[1] for r in rows),
            "top": [{"ms": ms, "calls": n, "name": k[:80]} for ms, n, k in rows[:8]]}
     emit(rec)
     return rec
@@ -801,7 +850,10 @@ def phase_fusion(unet, dev) -> dict:
            "foreground_share": float(np.mean([(mk > 0).mean() for mk in masks]))}
     emit(rec)
     phase_profile("clipseg_profile", lambda: clipseg(x, conds), "clipseg_profile.txt",
-                  {"csa_attention": "csa_kernel"})
+                  {"csa_attention": "csa_mma_kernel",
+                   # PyTorch's own copies and dtype casts; the blocks add none
+                   # for q, k, v (they hand views to the kernel)
+                   "copies_and_casts": "copy_kernel"})
     return rec
 
 
@@ -919,12 +971,16 @@ def summary(records, main_paths: dict) -> list:
             "bound_ms": per_fwd("bound_ms"),
             "bound_by": "bytes" if t_bytes >= per_fwd("bound_ms") / 2 else "operations",
             "library_ms": None if path[0]["library_ms"] is None else per_fwd("library_ms"),
-            "per": per[name], "shapes": len(path)})
+            "per": per[name], "shapes": len(path),
+            **({"variant": path[0]["variant"]} if "variant" in path[0] else {})})
     return out
 
 
 @torch.inference_mode()
 def main() -> None:
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_records.jsonl").unlink(missing_ok=True)
     dev = phase_device()
     phase_build()
     pred = make_predictor()

@@ -16,25 +16,76 @@
 // Co.  Stage 1 is an implicit GEMM, M = the (TH+2)(TW+2) halo positions,
 // N = Cm, K = 9*C, whose result goes to shared memory in the working dtype;
 // stage 2 is an implicit GEMM, M = TH*TW, N = Co, K = 9*Cm, whose A operand
-// is read from that shared-memory tile.  Both run in 64 x BN sub-tiles with
-// K staged in chunks of 16 as float32, each thread holding a 4 x (BN/16)
-// register tile on the CUDA cores (the scheme of common.cuh).  One block
-// loops over all of Co, so conv1 is computed once per tile, not once per
-// output-channel tile.
+// is read from that shared-memory tile.  One block loops over all of Co, so
+// conv1 is computed once per tile, not once per output-channel tile.
 //
-// The intermediate needs (TH+2)(TW+2)*Cm elements of shared memory, so the
-// host picks the tile by Cm and dtype (ops/cuda/conv3x3.py::pair_tile):
-// 8x16 while it fits the 227 KB a block may opt into, then 8x8, 4x4, 2x2.
-// Smaller tiles spend more of stage 1 on the halo: (TH+2)(TW+2)/(TH*TW) is
-// 1.41 at 8x16, 1.56 at 8x8, 2.25 at 4x4, 4 at 2x2.  Sites whose Cm and Co
-// are both <= 32 use BN = 32 so that half of each sub-tile is not padding.
+// Two kernels, chosen by dtype (ops/cuda/conv3x3.py::pair_variant):
+//
+// - bfloat16, "mma_bf16" (pair_mma_kernel): both GEMMs run on the tensor cores
+//   (mma.sync m16n8k16, bf16 operands, float32 accumulators; bf16 products are
+//   exact in float32, so only the order of the sums differs from the plain
+//   version).  Eight warps, 4 along M x 2 along N, walk N in chunks of BN (32,
+//   64 or 128 per stage; a warp's tile is up to 48 x 64, which is what keeps
+//   the shared-memory traffic per product down) and K in steps of 16 channels
+//   x all nine taps, nine 16-deep products per step.  The A operand is never
+//   staged as a matrix: ldmatrix takes one row address per lane, so the 3x3
+//   gather is an address offset (dy*PW + dx)*pitch.  Stage 1 gathers from a
+//   16-channel chunk of the (TH+4)(TW+4) input halo, brought in by 16-byte
+//   cp.async whose zero fill is conv1's zero padding; stage 2 gathers straight
+//   from the intermediate.  The row pitches are 16*m + 8 elements, never a
+//   multiple of 128 bytes, so the eight rows of a fragment fall into distinct
+//   banks; the intermediate's pad channels are written as zeros.  The weights
+//   come straight from the HWIO tensor viewed as row-major [9*Cin, N] into a
+//   ring of [9*16, BN] tiles, the next steps' tiles in flight while the tensor
+//   cores work on this one; ldmatrix.trans makes the col-major B fragment, so
+//   nothing is repacked on the host.  Rows past the channel count and columns
+//   past N are zero-filled.
+//   Who copies depends on the tile.  The wide sites' tiles (16x16, and 8x16
+//   with 128-column chunks) are filled by the TMA unit: thread 0 starts one
+//   tensor-map copy for the input-halo chunk (a [B, H, W, C] map, box 16
+//   channels x the halo, 32-byte swizzle; what lies outside the image arrives
+//   as zeros) and one per 64 weight columns (a [9, Cin, N] map, box 64 x 16 x
+//   9, 128-byte swizzle), and an mbarrier per ring slot says when they have
+//   landed.  By cp.async the same loads cost every thread up to eleven copy
+//   instructions a step, a large part of the widest site's time.  These tiles need
+//   every channel count a multiple of 8 and 16-byte aligned tensors.  The other
+//   tiles (resident weights, and 8x8 and down) use 16-byte cp.async into padded
+//   tiles, or scalar loaders where a channel count is off the 16-byte grid (the
+//   stem's C = 3, odd Cm or Co).  Epilogues add the bias and apply the ReLU on the accumulator
+//   fragments; stage 1 packs two bf16 values per 32-bit shared store, stage 2
+//   per 32-bit global store.
+//   Where every weight tile of both stages fits in shared memory beside the
+//   rest (the 32-wide stem and up4: 18 and 69 KB), the weights are loaded once
+//   and stay resident, the grid is as many blocks as the card holds at once,
+//   and each block walks many tiles: a 128-pixel tile would otherwise re-read
+//   all weights from L2 for 4 MFLOP of work, and that traffic, not the
+//   tensor cores, set those sites' time.
+// - float32, "cuda_cores_f32" (conv3x3_pair_kernel): 64 x BN sub-tiles with K
+//   staged in chunks of 16 as float32, each thread holding a 4 x (BN/16)
+//   register tile on the CUDA cores (the scheme of common.cuh).  It holds
+//   1e-4 relative, which TF32 would not.
+//
+// The intermediate needs (TH+2)(TW+2) rows of shared memory, so the host
+// picks the tile by the widths, the alignment and the dtype
+// (ops/cuda/conv3x3.py::pair_tile).  bfloat16: 8x16 with resident weights
+// where they fit; else 16x16 while the intermediate fits (Cm <= 128 or so),
+// 8x16 (both only on the 16-byte grid), 8x8, 4x4, 2x2.  float32: 8x16
+// while it fits the 227 KB a block may opt into, then 8x8, 4x4, 2x2.
+// Smaller tiles spend more of stage 1 on the halo and re-read the weights
+// more often: (TH+2)(TW+2)/(TH*TW) is 1.27 at 16x16, 1.41 at 8x16, 1.56 at
+// 8x8, 2.25 at 4x4, 4 at 2x2.
 //
 // Bound: at the path's widths the work is far above the card's bf16 ridge,
-// so the tensor-core rate bounds it; this first version multiplies on the
-// CUDA cores in float32 and recomputes conv1 on the halo, and so runs far
-// from that bound.  Any C, Cm, Co (C = 3 for the stem) and any H, W: ragged
-// tiles are masked with bounds checks.
+// so the tensor-core rate bounds it (the stem and up4, 32 wide at 576x768,
+// sit near the ridge).  The kernel recomputes conv1 on the halo and pads M
+// to 16, N to BN and each tap's channels to 16 (the stem's C = 3 runs nine
+// 16-deep products where flattening (tap, c) would need two); mma.sync
+// itself tops out at 630-650 TFLOP/s on an H100 (probe/mma_sync_peak.cu),
+// below the wgmma rate.  See
+// PERF.md for what it reaches.  Any C, Cm, Co and any H, W: ragged tiles are
+// masked.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -228,15 +279,535 @@ int launch(const T* x, const T* w1, const float* b1, const T* w2, const float* b
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int run(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-        void* out, int B, int H, int W, int C, int Cm, int Co, int th, int tw, int bn,
-        cudaStream_t s) {
+// ---------------------------------------------------------------- bf16, mma.sync
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using egm::mma::smem_addr;
+
+constexpr int NT = 256;        // 8 warps
+constexpr int WM = 4, WN = 2;  // warps along M and along N
+constexpr int CC = 16;         // channels per pipeline step (all nine taps of them)
+constexpr int XP = CC + 8;     // row pitch of the input-halo chunk
+constexpr int WROWS = 9 * CC;  // weight rows per step
+constexpr int WBOX = WROWS * 64;  // elements of one 64-column weight box (TMA)
+
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+// Ring depth by the wider column chunk: R - 1 steps load while one is
+// multiplied.  Narrow sites have short steps and small slots, so they keep
+// more loads in flight; at 128 columns two slots are what fits beside any
+// intermediate the 8x16 tile takes (a third did not pay where it fits).
+__host__ __device__ constexpr int ring_depth(int bn) {
+  return bn <= 32 ? 4 : bn <= 64 ? 3 : 2;
+}
+
+struct Flags {
+  int vec_x, vec_w1, vec_w2;  // 16-byte copies are possible for x, w1, w2
+};
+
+// The shared-memory layout, shared by the kernel and the launch: the
+// intermediate [P1][mid_pitch], then R ring slots, each the input-halo chunk
+// followed by the weight tile.  By cp.async the chunk is [NPX][XP] and the
+// tile [WROWS][BN + 8].  WRES (the weights stay resident): the slots hold the
+// input-halo chunk only, and behind the ring lie all weight tiles of stage 1,
+// then of stage 2, in step order.  TMA (the copy unit fills the slots): the
+// chunk is dense [NPX][CC] with the 32-byte swizzle, the tile one or two
+// boxes [WROWS][64] with the 128-byte swizzle, and the ring starts on a
+// multiple of 1024 bytes, since the swizzles are functions of the address.
+template <int TH, int TW, int BN1, int BN2, bool WRES, bool TMA>
+struct Layout {
+  static_assert(!(WRES && TMA), "resident weights come by cp.async");
+  static constexpr int PW = TW + 2, P1 = (TH + 2) * PW, P2 = TH * TW;
+  static constexpr int PWX = TW + 4, NPX = (TH + 4) * PWX;
+  static constexpr int BNMAX = BN1 > BN2 ? BN1 : BN2;
+  static constexpr int XBUF = TMA ? round_up(NPX * CC, 512) : NPX * XP;
+  static constexpr int WTILE = TMA ? (BNMAX + 63) / 64 * WROWS * 64 : WROWS * (BNMAX + 8);
+  static constexpr int SLOT = WRES ? XBUF : XBUF + WTILE;
+  static constexpr int R = WRES ? 2 : ring_depth(BNMAX);
+  __host__ __device__ static int mid_pitch(int Cm) { return round_up(Cm, 16) + 8; }
+  // elements of the resident weight tiles of a stage Cin -> N walked in BN columns
+  __host__ __device__ static int resident(int Cin, int N, int BN) {
+    return ((N + BN - 1) / BN) * ((Cin + CC - 1) / CC) * WROWS * (BN + 8);
+  }
+  __host__ static size_t bytes(int C, int Cm, int Co) {
+    size_t n = (size_t)P1 * mid_pitch(Cm) + R * SLOT;
+    if (WRES) n += resident(C, Cm, BN1) + resident(Cm, Co, BN2);
+    return sizeof(bf16) * n + (TMA ? 1024 : 0);
+  }
+};
+
+// what one GEMM stage reads, and the ring it stages it in
+struct StageIn {
+  const bf16* a_buf;  // stage 2: the intermediate
+  int a_pitch;        // row pitch of the A grid, elements
+  const bf16* wt;     // [9*Cin, N]
+  int Cin, N;
+  bool vec_w;
+  const bf16* wres;          // WRES: this stage's resident tiles
+  const CUtensorMap* map_w;  // TMA: wt as [9][Cin][N]
+  const bf16* xb;            // stage 1: this image, and the tile's origin
+  int H, W, y0, x0, b;
+  bool vec_x;
+  const CUtensorMap* map_x;  // TMA: x as [B][H][W][C]
+};
+
+struct Ring {
+  bf16* base;
+  unsigned long long* bars;  // TMA: one mbarrier per slot
+  int used;                  // TMA: steps that went through the ring so far
+};
+
+// The weights of channel chunk cc of the [9*Cin, N] matrix wt as [9*CC][BN + 8]:
+// row tap*CC + r is row tap*Cin + cc*CC + r, columns n0 .. n0 + BN; zeros where
+// the channel is past Cin or the column past N.
+template <int BN>
+__device__ __forceinline__ void load_weights(bf16* tile, const bf16* __restrict__ wt, int Cin,
+                                             int N, int n0, int cc, bool vec) {
+  constexpr int WP = BN + 8;
+  if (vec) {
+    constexpr int PIECES = BN / 8;
+    for (int e = threadIdx.x; e < WROWS * PIECES; e += NT) {
+      const int r = e / PIECES, col = (e % PIECES) * 8;
+      const int c = cc * CC + r % CC;
+      const bool ok = c < Cin && n0 + col < N;
+      egm::mma::cp_async_16(smem_addr(tile + r * WP + col),
+                            ok ? wt + ((long long)(r / CC) * Cin + c) * N + n0 + col : wt, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < WROWS * BN; e += NT) {
+      const int r = e / BN, col = e % BN;
+      const int c = cc * CC + r % CC;
+      tile[r * WP + col] = (c < Cin && n0 + col < N)
+                               ? wt[((long long)(r / CC) * Cin + c) * N + n0 + col]
+                               : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// Channels cc*CC .. +CC of the (TH+4) x PWX input halo whose top-left pixel is
+// (y0 - 2, x0 - 2), as [NPX][XP]; zeros outside the image (conv1's padding)
+// and past C.
+template <int NPX, int PWX>
+__device__ __forceinline__ void load_x_chunk(bf16* buf, const bf16* __restrict__ xb, int H,
+                                             int W, int C, int y0, int x0, int cc, bool vec) {
+  if (vec) {
+    constexpr int PIECES = CC / 8;
+    for (int e = threadIdx.x; e < NPX * PIECES; e += NT) {
+      const int px = e / PIECES, c = cc * CC + (e % PIECES) * 8;
+      const int yy = y0 - 2 + px / PWX, xx = x0 - 2 + px % PWX;
+      const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W && c < C;
+      egm::mma::cp_async_16(smem_addr(buf + px * XP + (e % PIECES) * 8),
+                            ok ? xb + ((long long)yy * W + xx) * C + c : xb, ok);
+    }
+  } else {  // one pixel per thread: CC independent 2-byte loads, two 16-byte stores
+    for (int px = threadIdx.x; px < NPX; px += NT) {
+      const int yy = y0 - 2 + px / PWX, xx = x0 - 2 + px % PWX;
+      const bool inside = yy >= 0 && yy < H && xx >= 0 && xx < W;
+      const bf16* src = xb + ((long long)yy * W + xx) * C + cc * CC;
+      const int valid = inside ? min(CC, C - cc * CC) : 0;
+      __align__(16) bf16 row[CC];
+#pragma unroll
+      for (int j = 0; j < CC; ++j) row[j] = j < valid ? src[j] : __float2bfloat16_rn(0.f);
+#pragma unroll
+      for (int j = 0; j < CC / 8; ++j)
+        reinterpret_cast<uint4*>(buf + px * XP)[j] = reinterpret_cast<const uint4*>(row)[j];
+    }
+  }
+}
+
+// One implicit-GEMM stage on the tensor cores: for every chunk of BN output
+// columns, acc[16*MB rows, BN] = sum over (16-channel chunk, tap) of A * Wt,
+// then epi(first column, acc).  One pipeline step is one channel chunk: its
+// weight tile (and, in stage 1, its input-halo chunk) is loaded into the ring
+// while the step before it is multiplied, nine 16-deep products per step.
+// The warp at (wm, wn) owns m-blocks wm*MW .. wm*MW + MW - 1 (those below MB)
+// and columns wn*BN/2 .. + BN/2 of the chunk.  A is gathered by ldmatrix:
+// a_row[i] is this lane's row of m-block i at tap (0, 0) in a grid PWA wide
+// with row pitch a_pitch (elements).  STAGE1: A is the ring slot's input-halo
+// chunk; otherwise A is a_buf at channel offset cc*CC.  WRES: the weight tile
+// of step s lies at wres + s*WROWS*(BN + 8) already, so only stage 1 loads
+// anything (and stage 2 runs without a barrier).
+template <int MB, int BN, int R, int PWA, bool STAGE1, bool WRES, bool TMA, int NPX,
+          int SLOT, int XBUF, class Epi>
+__device__ __forceinline__ void gemm_stage(const StageIn& in, Ring& ring,
+                                           const int (&a_row)[(MB + WM - 1) / WM],
+                                           const Epi& epi) {
+  constexpr int MW = (MB + WM - 1) / WM;  // m-blocks per warp
+  constexpr int NB = BN / WN / 8;         // n-blocks (8 columns) per warp
+  constexpr int WP = BN + 8;
+  constexpr int BOXES = (BN + 63) / 64;
+  constexpr bool LOADS = STAGE1 || !WRES;
+  static_assert(NB % 2 == 0, "a warp loads B fragments for 16 columns at a time");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int Cin = in.Cin, N = in.N;
+  const int chunks = (Cin + CC - 1) / CC;
+  const int total = ((N + BN - 1) / BN) * chunks;  // pipeline steps
+  // This lane's ldmatrix offsets (mma.cuh), in bytes.  In a weight tile: its
+  // row, and per 16 columns its 16-byte piece (by TMA: the box, and the piece
+  // xor row % 8 = lane % 8).  In the A grid, per m-block: its row at tap (0,
+  // 0) and its 8-column half.
+  const int w_lrow = (lane & 7) + 8 * ((lane >> 3) & 1);
+  uint32_t w_col[NB / 2];
+#pragma unroll
+  for (int j2 = 0; j2 < NB / 2; ++j2) {
+    const int col = wn * (BN / 2) + j2 * 16;
+    w_col[j2] = TMA ? 2u * (uint32_t)(col / 64 * WBOX) +
+                          ((uint32_t)((col % 64 / 8) | (lane >> 4)) ^ (lane & 7)) * 16u
+                    : 2u * (uint32_t)(col + 8 * (lane >> 4));
+  }
+  const uint32_t w_off = 2u * (uint32_t)((WRES ? 0 : XBUF) + w_lrow * (TMA ? 64 : WP));
+  uint32_t a_off[MW];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+    a_off[i] = 2u * (uint32_t)(a_row[i] * in.a_pitch + 8 * (lane >> 4));
+
+  int in0 = 0, icc = 0;  // the step being loaded
+  auto start_loads = [&](int s) {
+    if constexpr (TMA) {
+      if (threadIdx.x == 0) {  // the copy unit does the rest
+        const int at = (ring.used + s) % R;
+        bf16* slot = ring.base + at * SLOT;
+        const uint32_t bar = smem_addr(&ring.bars[at]);
+        egm::mma::mbarrier_expect(bar, 2 * ((STAGE1 ? NPX * CC : 0) + BOXES * WBOX));
+        if constexpr (STAGE1)
+          egm::mma::tma_load_4d(smem_addr(slot), in.map_x, icc * CC, in.x0 - 2, in.y0 - 2, in.b,
+                                bar);
+#pragma unroll
+        for (int bx = 0; bx < BOXES; ++bx)
+          egm::mma::tma_load_3d(smem_addr(slot + XBUF + bx * WBOX), in.map_w, in0 + bx * 64,
+                                icc * CC, 0, bar);
+      }
+    } else {
+      bf16* slot = ring.base + (s % R) * SLOT;
+      if constexpr (!WRES) load_weights<BN>(slot + XBUF, in.wt, Cin, N, in0, icc, in.vec_w);
+      if constexpr (STAGE1)
+        load_x_chunk<NPX, PWA>(slot, in.xb, in.H, in.W, Cin, in.y0, in.x0, icc, in.vec_x);
+    }
+    if (++icc == chunks) {
+      icc = 0;
+      in0 += BN;
+    }
+  };
+
+  float acc[MW][NB][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  if constexpr (TMA) {
+    for (int s = 0; s < R && s < total; ++s) start_loads(s);  // every slot is free
+  } else if constexpr (LOADS) {
+    for (int s = 0; s < R - 1; ++s) {
+      if (s < total) start_loads(s);
+      egm::mma::cp_async_commit();
+    }
+  }
+  int n0 = 0, cc = 0;  // the step being multiplied
+  for (int s = 0; s < total; ++s) {
+    int at = s % R;
+    if constexpr (TMA) {
+      at = (ring.used + s) % R;
+      egm::mma::mbarrier_wait(smem_addr(&ring.bars[at]), ((ring.used + s) / R) & 1);
+    } else if constexpr (LOADS) {
+      egm::mma::cp_async_wait<R - 2>();  // step s has landed
+      __syncthreads();                   // ... for every thread, and step s - 1 is consumed
+      if (s + R - 1 < total) start_loads(s + R - 1);
+      egm::mma::cp_async_commit();
+    }
+    const uint32_t slot = smem_addr(ring.base + at * SLOT);
+    const uint32_t a_addr = STAGE1 ? slot : smem_addr(in.a_buf + cc * CC);
+    const uint32_t w_addr = (WRES ? smem_addr(in.wres + s * (WROWS * WP)) : slot) + w_off;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      uint32_t bw[NB / 2][4], af[MW][4];
+#pragma unroll
+      for (int j2 = 0; j2 < NB / 2; ++j2)
+        egm::mma::ldmatrix_x4_trans(
+            bw[j2], w_addr + 2u * (uint32_t)(tap * CC * (TMA ? 64 : WP)) + w_col[j2]);
+      const int tap_row = (tap / 3) * PWA + tap % 3;  // rows between tap (0, 0) and this tap
+#pragma unroll
+      for (int i = 0; i < MW; ++i) {
+        if (wm * MW + i >= MB) continue;  // uniform in the warp
+        if constexpr (STAGE1 && TMA) {
+          // dense 32-byte rows: the 16-byte half is xored with bit 2 of the row
+          const uint32_t px = (uint32_t)(a_row[i] + tap_row);
+          egm::mma::ldmatrix_x4(af[i], a_addr + px * 32u + ((((px >> 2) ^ (lane >> 4)) & 1u) << 4));
+        } else {
+          egm::mma::ldmatrix_x4(af[i], a_addr + 2u * (uint32_t)(tap_row * in.a_pitch) + a_off[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MW; ++i) {
+        if (wm * MW + i >= MB) continue;
+#pragma unroll
+        for (int j2 = 0; j2 < NB / 2; ++j2) {
+          egm::mma::mma_bf16(acc[i][2 * j2], af[i], bw[j2][0], bw[j2][1]);
+          egm::mma::mma_bf16(acc[i][2 * j2 + 1], af[i], bw[j2][2], bw[j2][3]);
+        }
+      }
+    }
+    if (++cc == chunks) {
+      epi(n0 + wn * (BN / 2), acc);
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      cc = 0;
+      n0 += BN;
+    }
+    if constexpr (TMA) {
+      __syncthreads();  // the slot is consumed: refill it
+      if (s + R < total) start_loads(s + R);
+    }
+  }
+  if constexpr (TMA) {
+    ring.used += total;
+  } else {
+    egm::mma::cp_async_wait<0>();
+    __syncthreads();  // the ring is free, the epilogues' shared-memory stores visible
+  }
+}
+
+// One block walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ... of the
+// tiles_x * tiles_y * B tiles (x fastest, so blocks that run together share
+// their halos in L2).  Without resident weights the grid has one block per
+// tile; with them it has as many blocks as the card holds at once.
+//
+// TMA (no resident weights, every channel count a multiple of 8, 16-byte
+// aligned tensors): thread 0 hands each step's input-halo chunk and weight
+// boxes to the copy unit as tensor-map copies, whose zero fill out of bounds
+// is the zero padding, the channel tail and the column tail at once; an
+// mbarrier per slot says when they have landed.  By cp.async the same loads
+// cost every thread up to eleven copy instructions a step.
+template <int TH, int TW, int BN1, int BN2, bool WRES, bool TMA>
+__global__ void __launch_bounds__(NT)
+pair_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                const float* __restrict__ b1, const bf16* __restrict__ w2,
+                const float* __restrict__ b2, bf16* __restrict__ out, int H, int W, int C,
+                int Cm, int Co, int tiles_x, int tiles_y, int tiles, Flags fl,
+                const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_w1,
+                const __grid_constant__ CUtensorMap map_w2) {
+  using L = Layout<TH, TW, BN1, BN2, WRES, TMA>;
+  constexpr int PW = L::PW, P1 = L::P1, P2 = L::P2, PWX = L::PWX;
+  constexpr int MB1 = (P1 + 15) / 16, MB2 = (P2 + 15) / 16;
+  constexpr int MW1 = (MB1 + WM - 1) / WM, MW2 = (MB2 + WM - 1) / WM;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const int MP = L::mid_pitch(Cm);
+  bf16* mid = reinterpret_cast<bf16*>(smem_tc);  // [P1][MP]
+  bf16* slots = mid + P1 * MP;                   // [R] slots
+  if constexpr (TMA) slots += ((1024u - (smem_addr(slots) & 1023u)) & 1023u) / 2;
+  bf16* w1res = slots + L::R * L::SLOT;           // WRES: stage 1's weight tiles
+  bf16* w2res = w1res + L::resident(C, Cm, BN1);  // WRES: stage 2's
+  __shared__ __align__(8) unsigned long long bars[L::R];
+  Ring ring{slots, bars, 0};
+  if constexpr (TMA) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < L::R; ++i) egm::mma::mbarrier_init(smem_addr(&bars[i]), 1);
+      egm::mma::fence_async_proxy();
+    }
+    __syncthreads();
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / WN;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  // the row of an m-block this lane addresses for ldmatrix (mma.cuh)
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1);
+
+  if constexpr (WRES) {  // one cp.async group, older than every step's
+    bf16* dst = w1res;
+    for (int n0 = 0; n0 < Cm; n0 += BN1)
+      for (int cc = 0; cc * CC < C; ++cc, dst += WROWS * (BN1 + 8))
+        load_weights<BN1>(dst, w1, C, Cm, n0, cc, fl.vec_w1);
+    for (int n0 = 0; n0 < Co; n0 += BN2)
+      for (int cc = 0; cc * CC < Cm; ++cc, dst += WROWS * (BN2 + 8))
+        load_weights<BN2>(dst, w2, Cm, Co, n0, cc, fl.vec_w2);
+    egm::mma::cp_async_commit();
+  }
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b = tile / (tiles_x * tiles_y);
+    const int y0 = (tile / tiles_x) % tiles_y * TH, x0 = tile % tiles_x * TW;
+    const bf16* xb = x + (long long)b * H * W * C;
+
+    // stage 1: mid[p, :] = relu(conv1(x) + b1) at halo position p, 0 outside
+    // the image and in the pad channels
+    {
+      int a_row[MW1];
+#pragma unroll
+      for (int i = 0; i < MW1; ++i) {
+        const int p = (wm * MW1 + i) * 16 + lrow;
+        a_row[i] = p < P1 ? (p / PW) * PWX + p % PW : 0;  // rows past P1 are discarded
+      }
+      const int mid_cols = MP - 8;
+      auto epi = [&](int nw, float (&acc)[MW1][BN1 / WN / 8][4]) {
+#pragma unroll
+        for (int i = 0; i < MW1; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int p = (wm * MW1 + i) * 16 + g + 8 * r;
+            if (wm * MW1 + i >= MB1 || p >= P1) continue;
+            const int yy = y0 - 1 + p / PW, xx = x0 - 1 + p % PW;
+            const bool inside = yy >= 0 && yy < H && xx >= 0 && xx < W;
+#pragma unroll
+            for (int j = 0; j < BN1 / WN / 8; ++j) {
+              const int n = nw + j * 8 + t2;
+              if (n >= mid_cols) continue;
+              const float v0 = (inside && n < Cm) ? fmaxf(acc[i][j][2 * r] + b1[n], 0.f) : 0.f;
+              const float v1 =
+                  (inside && n + 1 < Cm) ? fmaxf(acc[i][j][2 * r + 1] + b1[n + 1], 0.f) : 0.f;
+              *reinterpret_cast<uint32_t*>(mid + p * MP + n) = egm::mma::pack_bf16(v0, v1);
+            }
+          }
+      };
+      const StageIn in{nullptr, XP, w1,       C,  Cm, (bool)fl.vec_w1, w1res, &map_w1,
+                       xb,      H,  W,        y0, x0, b,               (bool)fl.vec_x, &map_x};
+      gemm_stage<MB1, BN1, L::R, PWX, true, WRES, TMA, L::NPX, L::SLOT, L::XBUF>(in, ring, a_row,
+                                                                                 epi);
+    }
+
+    // stage 2: out = relu(conv2(mid) + b2) on the tile's pixels inside the image
+    {
+      int a_row[MW2];
+#pragma unroll
+      for (int i = 0; i < MW2; ++i) {
+        const int m = (wm * MW2 + i) * 16 + lrow;
+        a_row[i] = m < P2 ? (m / TW) * PW + m % TW : 0;
+      }
+      const bool pairs = (Co & 1) == 0;  // 4-byte stores stay aligned
+      auto epi = [&](int nw, float (&acc)[MW2][BN2 / WN / 8][4]) {
+#pragma unroll
+        for (int i = 0; i < MW2; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int m = (wm * MW2 + i) * 16 + g + 8 * r;
+            if (wm * MW2 + i >= MB2 || m >= P2) continue;
+            const int oy = y0 + m / TW, ox = x0 + m % TW;
+            if (oy >= H || ox >= W) continue;
+            bf16* row = out + (((long long)b * H + oy) * W + ox) * Co;
+#pragma unroll
+            for (int j = 0; j < BN2 / WN / 8; ++j) {
+              const int n = nw + j * 8 + t2;
+              if (n >= Co) continue;
+              const float v0 = fmaxf(acc[i][j][2 * r] + b2[n], 0.f);
+              if (n + 1 < Co) {
+                const float v1 = fmaxf(acc[i][j][2 * r + 1] + b2[n + 1], 0.f);
+                if (pairs) {
+                  *reinterpret_cast<uint32_t*>(row + n) = egm::mma::pack_bf16(v0, v1);
+                  continue;
+                }
+                row[n + 1] = __float2bfloat16_rn(v1);
+              }
+              row[n] = __float2bfloat16_rn(v0);
+            }
+          }
+      };
+      const StageIn in{mid,     MP, w2,       Cm, Co, (bool)fl.vec_w2, w2res, &map_w2,
+                       nullptr, H,  W,        y0, x0, b,               false,          nullptr};
+      gemm_stage<MB2, BN2, L::R, PW, false, WRES, TMA, 0, L::SLOT, L::XBUF>(in, ring, a_row, epi);
+    }
+  }
+}
+
+template <int TH, int TW, int BN1, int BN2, bool WRES, bool TMA>
+int launch(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
+           void* out, int B, int H, int W, int C, int Cm, int Co, Flags fl,
+           cudaStream_t stream) {
+  using L = Layout<TH, TW, BN1, BN2, WRES, TMA>;
+  const size_t smem = L::bytes(C, Cm, Co);
+  auto kernel = pair_mma_kernel<TH, TW, BN1, BN2, WRES, TMA>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const long long tiles = (long long)tiles_x * tiles_y * B;
+  if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  long long blocks = tiles;
+  if (WRES) {  // as many blocks as run at once
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidValue;
+    blocks = tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm;
+  }
+  CUtensorMap maps[3] = {};  // x [B][H][W][C]; w1 [9][C][Cm]; w2 [9][Cm][Co]
+  if (TMA) {
+    const cuuint64_t xd[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t xs[3] = {2ull * C, 2ull * C * W, 2ull * C * W * H};
+    const cuuint32_t xbox[4] = {CC, TW + 4, TH + 4, 1};
+    bool ok = egm::mma::make_tensor_map(&maps[0], x, 4, xd, xs, xbox, CU_TENSOR_MAP_SWIZZLE_32B);
+    const void* w[2] = {w1, w2};
+    const int cin[2] = {C, Cm}, n[2] = {Cm, Co};
+    for (int i = 0; i < 2 && ok; ++i) {
+      const cuuint64_t wd[3] = {(cuuint64_t)n[i], (cuuint64_t)cin[i], 9};
+      const cuuint64_t ws[2] = {2ull * n[i], 2ull * n[i] * cin[i]};
+      const cuuint32_t wbox[3] = {64, CC, 9};
+      ok = egm::mma::make_tensor_map(&maps[1 + i], w[i], 3, wd, ws, wbox,
+                                     CU_TENSOR_MAP_SWIZZLE_128B);
+    }
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
+  kernel<<<(unsigned)blocks, NT, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
+      static_cast<const bf16*>(w2), b2, static_cast<bf16*>(out), H, W, C, Cm, Co, tiles_x,
+      tiles_y, (int)tiles, fl, maps[0], maps[1], maps[2]);
+  return (int)cudaGetLastError();
+}
+
+int run(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
+        void* out, int B, int H, int W, int C, int Cm, int Co, int th, int tw, int bn1,
+        int bn2, int resident, cudaStream_t s) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const Flags fl{C % 8 == 0 && aligned(x), Cm % 8 == 0 && aligned(w1),
+                 Co % 8 == 0 && aligned(w2)};
+  const bool all_vec = fl.vec_x && fl.vec_w1 && fl.vec_w2;
+  // the 16x16 tile and the 8x16 tile with 128-column chunks are served by the
+  // copy unit alone, so they need everything on the 16-byte grid; the host
+  // asks for another tile otherwise
+#define EGM_PAIR_TC_CASE(TH_, TW_, BN1_, BN2_, WRES_, TMA_)                              \
+  if (th == TH_ && tw == TW_ && bn1 == BN1_ && bn2 == BN2_ && (resident != 0) == WRES_ && \
+      (!TMA_ || all_vec))                                                                 \
+    return launch<TH_, TW_, BN1_, BN2_, WRES_, TMA_>(x, w1, b1, w2, b2, out, B, H, W, C, Cm,  \
+                                                     Co, fl, s);
+  EGM_PAIR_TC_CASE(8, 16, 32, 32, true, false)
+  EGM_PAIR_TC_CASE(8, 16, 64, 32, true, false)
+  EGM_PAIR_TC_CASE(8, 16, 64, 64, true, false)
+  EGM_PAIR_TC_CASE(8, 16, 128, 64, false, true)
+  EGM_PAIR_TC_CASE(8, 16, 128, 128, false, true)
+  EGM_PAIR_TC_CASE(16, 16, 64, 32, false, true)
+  EGM_PAIR_TC_CASE(16, 16, 64, 64, false, true)
+  EGM_PAIR_TC_CASE(8, 8, 64, 64, false, false)
+  EGM_PAIR_TC_CASE(4, 4, 64, 64, false, false)
+  EGM_PAIR_TC_CASE(2, 2, 64, 64, false, false)
+#undef EGM_PAIR_TC_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------- float32 dispatch
+
+int run_f32(const void* x, const void* w1, const float* b1p, const void* w2, const float* b2p,
+            void* out, int B, int H, int W, int C, int Cm, int Co, int th, int tw, int bn,
+            cudaStream_t s) {
+  using T = float;
   const T* xp = static_cast<const T*>(x);
   const T* w1p = static_cast<const T*>(w1);
   const T* w2p = static_cast<const T*>(w2);
-  const float* b1p = static_cast<const float*>(b1);
-  const float* b2p = static_cast<const float*>(b2);
   T* op = static_cast<T*>(out);
 #define EGM_PAIR_CASE(TH_, TW_, BN_)             \
   if (th == TH_ && tw == TW_ && bn == BN_)       \
@@ -254,18 +825,28 @@ int run(const void* x, const void* w1, const void* b1, const void* w2, const voi
 
 // x [B,H,W,C], w1 [3,3,C,Cm], w2 [3,3,Cm,Co], b1 [Cm] and b2 [Co] float32,
 // out [B,H,W,Co]; x, w1, w2 and out share the dtype `dtype` (0 float32,
-// 1 bfloat16).  (th, tw, bn) is the tile: one of (8,16,32), (8,16,64),
-// (8,8,64), (4,4,64), (2,2,64), picked by the host so that the intermediate
-// fits shared memory.
+// 1 bfloat16).  (th, tw) is the pixel tile and (bn1, bn2) the column chunk of
+// the two stages, picked by the host (ops/cuda/conv3x3.py::pair_tile) so that
+// the intermediate fits shared memory: float32 takes (8,16), (8,8), (4,4) or
+// (2,2) with bn1 = bn2 = 64, or (8,16) with 32; bfloat16 takes (8,16) with
+// (128,64) or (128,128) or (16,16) with (64,32) or (64,64), which the copy
+// unit serves and which therefore need C, Cm, Co % 8 == 0 and x, w1, w2 on
+// 16-byte boundaries, or a smaller tile with (64,64).  resident (bfloat16
+// only, (8,16) with (32,32), (64,32) or (64,64)): all weights stay in shared
+// memory and a block walks many tiles.
 extern "C" int egm_conv3x3_pair(const void* x, const void* w1, const void* b1,
                                 const void* w2, const void* b2, void* out, int B, int H,
-                                int W, int C, int Cm, int Co, int th, int tw, int bn,
-                                int dtype, void* stream) {
+                                int W, int C, int Cm, int Co, int th, int tw, int bn1,
+                                int bn2, int resident, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || B > 65535 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == egm::kFloat32)
-    return run<float>(x, w1, b1, w2, b2, out, B, H, W, C, Cm, Co, th, tw, bn, s);
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 1 || Cm < 1 || Co < 1)
+    return (int)cudaErrorInvalidValue;
+  const float* b1p = static_cast<const float*>(b1);
+  const float* b2p = static_cast<const float*>(b2);
+  if (dtype == egm::kFloat32 && bn1 == bn2 && !resident)
+    return run_f32(x, w1, b1p, w2, b2p, out, B, H, W, C, Cm, Co, th, tw, bn1, s);
   if (dtype == egm::kBFloat16)
-    return run<__nv_bfloat16>(x, w1, b1, w2, b2, out, B, H, W, C, Cm, Co, th, tw, bn, s);
+    return tc::run(x, w1, b1p, w2, b2p, out, B, H, W, C, Cm, Co, th, tw, bn1, bn2, resident,
+                   s);
   return (int)cudaErrorInvalidValue;
 }

@@ -99,8 +99,7 @@ class ResidualAttentionBlock(nn.Module):
         q, k, v = self.in_proj(self.ln_1(x)).chunk(3, dim=-1)
         weights = None
         if csa and not return_weights and mult_mask is None:
-            attn = csa_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                 self.heads)
+            attn = csa_attention(q, k, v, self.heads)  # views of in_proj's output
         else:
             attn = multi_head_attention(q, k, v, self.heads, csa=csa,
                                         attn_bias=attn_bias, mult_mask=mult_mask,

@@ -5,8 +5,8 @@ Replaces ``egm_unet_tpu/ops/pallas/conv3x3.py::conv3x3_gemm``.  The CUDA
 kernel (``csrc/conv3x3.cu``) is an implicit GEMM over M = B*H*W pixels,
 N = Co, K = 9*C with float32 accumulation; zero padding comes from bounds
 checks, so no padded copy is written and any C works.  At the path's widths
-the tensor-core rate bounds the work; this version multiplies on the CUDA
-cores in float32, which leaves it far from that bound (see PERF.md).
+the tensor-core rate bounds the work; K2 multiplies on the CUDA cores in
+float32, which leaves it far from that bound (see PERF.md).
 
 ``conv3x3_pair_gemm`` replaces
 ``egm_unet_tpu/ops/pallas/conv3x3.py::conv3x3_pair_gemm``: the folded
@@ -14,8 +14,13 @@ DoubleConv ``relu(conv2(relu(conv1(x) + b1)) + b2)`` in one launch
 (``csrc/conv3x3_pair.cu``).  A block owns a tile of output pixels and all of
 Co; conv1's output on the tile and a one-pixel halo stays in shared memory in
 the working dtype, zeroed where the halo lies outside the image (conv2's zero
-padding), and never reaches device memory.  ``pair_tile`` picks the tile by
-Cm and dtype so that the intermediate fits the 227 KB a block may use.
+padding), and never reaches device memory.  ``pair_variant`` names the kernel
+a dtype gets: bfloat16 multiplies both GEMMs on the tensor cores (``mma.sync``
+fed by ``ldmatrix`` from bf16 shared-memory tiles that the TMA unit or
+``cp.async`` fills);
+float32 stays on the CUDA cores, which hold 1e-4 relative.  ``pair_tile``
+picks the tile by Cm and dtype so that the intermediate and the variant's
+staging buffers fit the 227 KB a block may use.
 
 ``conv3x3_gemm`` and ``conv3x3_pair_gemm`` launch their kernels for CUDA
 tensors and run ``conv3x3_plain`` / ``conv3x3_pair_plain`` for CPU tensors;
@@ -37,11 +42,24 @@ from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
 launches = 0  # conv3x3_gemm kernel launches since the last reset
 pair_launches = 0  # conv3x3_pair_gemm kernel launches since the last reset
 
-# csrc/conv3x3_pair.cu: tiles (TH, TW) in order of preference, the float32
-# staging of one K chunk (16 x (64 + 4 + BN)), and the shared memory a block
-# may opt into on sm_90
-PAIR_TILES = ((8, 16), (8, 8), (4, 4), (2, 2))
+# csrc/conv3x3_pair.cu: tiles (TH, TW) in order of preference and the shared
+# memory a block may opt into on sm_90.  The tensor-core kernel keeps a ring
+# of slots, each 16 channels (PAIR_CC) of the input halo and the nine taps'
+# weight tile for them, PAIR_RING[wider column chunk] deep.  Where all weight
+# tiles fit beside the intermediate and a ring of two input-halo chunks in
+# half an SM's shared memory (PAIR_RESIDENT_LIMIT), they stay resident, a
+# block walks many 8x16 tiles, and the column chunks (BN1, BN2) are the
+# narrowest of PAIR_RESIDENT_CHUNKS that cover Cm and Co.  Without resident
+# weights the two largest tiles are filled by the TMA unit (dense swizzled
+# slots), the smaller ones by cp.async (padded slots).  The CUDA-core kernel
+# stages one K chunk of 16 as float32 (16 x (64 + 4 + BN)).
+PAIR_TILES = ((16, 16), (8, 16), (8, 8), (4, 4), (2, 2))
+PAIR_TMA_TILES = ((16, 16), (8, 16))  # without resident weights: filled by the TMA unit
 PAIR_SMEM_LIMIT = 232448
+PAIR_RESIDENT_LIMIT = 233472 // 2 - 1024  # two blocks per SM, 1 KB reserved each
+PAIR_CC = 16
+PAIR_RING = {32: 4, 64: 3, 128: 2}
+PAIR_RESIDENT_CHUNKS = ((32, 32), (64, 32), (64, 64))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -97,16 +115,78 @@ def conv3x3_gemm(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def pair_tile(cm: int, co: int, itemsize: int) -> tuple:
-    """``(TH, TW, BN)`` of the pair kernel for a mid width ``cm``: the
-    largest tile whose ``(TH+2)(TW+2)*cm`` intermediate fits shared memory
-    beside the staging buffers; ``BN`` = 32 where both convs are at most 32
-    wide, else 64."""
-    bn = 32 if max(cm, co) <= 32 else 64
-    staging = 4 * 16 * (64 + 4 + bn)
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pair_variant(dtype: torch.dtype) -> str:
+    """The kernel ``conv3x3_pair_gemm`` launches for CUDA tensors of
+    ``dtype``: ``"mma_bf16"`` (tensor cores) or ``"cuda_cores_f32"``."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
+    return "mma_bf16" if dtype == torch.bfloat16 else "cuda_cores_f32"
+
+
+def pair_smem_bytes(tile: tuple, c: int, cm: int, co: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of the pair kernel at ``tile`` =
+    (TH, TW, BN1, BN2, resident), as ``csrc/conv3x3_pair.cu`` lays it out."""
+    th, tw, bn1, bn2, resident = tile
+    halo = (th + 2) * (tw + 2)
+    if itemsize == 4:  # float32 staging of one K chunk + the intermediate
+        return 4 * 16 * (64 + 4 + bn1) + halo * cm * 4
+    mid = halo * (_up(cm, 16) + 8)  # pitch off the 128-byte grid, pad channels zero
+    xbuf = (th + 4) * (tw + 4) * (PAIR_CC + 8)
+    weights = lambda cin, n, bn: (-(-n // bn) * -(-cin // PAIR_CC)
+                                  * 9 * PAIR_CC * (bn + 8))
+    if resident:
+        return 2 * (mid + 2 * xbuf + weights(c, cm, bn1) + weights(cm, co, bn2))
+    ring = PAIR_RING[max(bn1, bn2)]
+    if (th, tw) in PAIR_TMA_TILES:
+        # dense swizzled tiles on 1024-byte boundaries: the input-halo chunk,
+        # and one [9*16, 64] box per 64 weight columns
+        slot = _up((th + 4) * (tw + 4) * PAIR_CC, 512) \
+            + -(-max(bn1, bn2) // 64) * 9 * PAIR_CC * 64
+        return 2 * (mid + ring * slot) + 1024
+    slot = xbuf + 9 * PAIR_CC * (max(bn1, bn2) + 8)
+    return 2 * (mid + ring * slot)
+
+
+def pair_tile(c: int, cm: int, co: int, itemsize: int, aligned: bool = True) -> tuple:
+    """``(TH, TW, BN1, BN2, resident)`` of the pair kernel for the widths
+    C -> Cm -> Co: the pixel tile, the column chunk of each stage (wider
+    stages walk their columns in chunks), and whether the weights stay
+    resident in shared memory.  bfloat16 (tensor cores): the 8x16 tile with
+    resident weights where that fits ``PAIR_RESIDENT_LIMIT``; else the largest
+    tile whose shared memory fits: 16x16 (least halo work and weight traffic
+    per pixel) with 64-column chunks, 8x16 with 128-column chunks, then 8x8,
+    4x4, 2x2 with 64.  The first two are filled by the TMA unit alone, which
+    copies 16-byte pieces: they need every channel count a multiple of 8 and
+    x, w1, w2 on 16-byte boundaries (``aligned``).  float32 (CUDA cores): 8x16
+    and down, 32 columns for both stages where both widths are at most 32,
+    else 64."""
+    tma_ok = aligned and c % 8 == 0 and cm % 8 == 0 and co % 8 == 0
+    if itemsize == 2:
+        for bn1, bn2 in PAIR_RESIDENT_CHUNKS:
+            tile = (8, 16, bn1, bn2, True)
+            if bn1 >= cm and bn2 >= co and pair_smem_bytes(
+                    tile, c, cm, co, itemsize) <= PAIR_RESIDENT_LIMIT:
+                return tile
     for th, tw in PAIR_TILES:
-        if staging + (th + 2) * (tw + 2) * cm * itemsize <= PAIR_SMEM_LIMIT:
-            return th, tw, bn
+        if itemsize == 4:
+            if (th, tw) == (16, 16):
+                continue
+            bn1 = bn2 = 32 if max(cm, co) <= 32 and (th, tw) == (8, 16) else 64
+        elif (th, tw) in PAIR_TMA_TILES and not tma_ok:
+            continue
+        elif (th, tw) == (16, 16):
+            bn1, bn2 = 64, 32 if co <= 32 else 64
+        elif (th, tw) == (8, 16):
+            bn1, bn2 = 128, 64 if co <= 64 else 128
+        else:
+            bn1 = bn2 = 64
+        tile = (th, tw, bn1, bn2, False)
+        if pair_smem_bytes(tile, c, cm, co, itemsize) <= PAIR_SMEM_LIMIT:
+            return tile
     raise ValueError(f"conv3x3_pair_gemm: a mid width of {cm} channels does "
                      "not fit shared memory at the smallest tile")
 
@@ -114,15 +194,20 @@ def pair_tile(cm: int, co: int, itemsize: int) -> tuple:
 def pair_flops(shape, cm: int, co: int, itemsize: int) -> tuple:
     """``(needed, executed)`` FLOPs of one pair call on ``shape`` =
     (B, H, W, C): what the function needs, and what the kernel runs with
-    conv1 recomputed on each tile's halo and every 64 x BN x 16 sub-tile
-    padded out."""
+    conv1 recomputed on each tile's halo and every sub-tile padded out: M to
+    16, N to the stage's column chunk and each tap's channels to 16 on the
+    tensor cores; M to 64, N to BN and K = 9*C to 16 on the CUDA cores."""
     b, h, w, c = shape
     needed = 2.0 * b * h * w * 9 * (c * cm + cm * co)
-    th, tw, bn = pair_tile(cm, co, itemsize)
-    up = lambda n, m: -(-n // m) * m
+    th, tw, bn1, bn2, _ = pair_tile(c, cm, co, itemsize)
     tiles = b * -(-h // th) * -(-w // tw)
-    stage1 = up((th + 2) * (tw + 2), 64) * up(cm, bn) * up(9 * c, 16)
-    stage2 = up(th * tw, 64) * up(co, bn) * up(9 * cm, 16)
+    halo, pixels = (th + 2) * (tw + 2), th * tw
+    if itemsize == 4:
+        stage1 = _up(halo, 64) * _up(cm, bn1) * _up(9 * c, 16)
+        stage2 = _up(pixels, 64) * _up(co, bn2) * _up(9 * cm, 16)
+    else:
+        stage1 = _up(halo, 16) * _up(cm, bn1) * 9 * _up(c, 16)
+        stage2 = _up(pixels, 16) * _up(co, bn2) * 9 * _up(cm, 16)
     return needed, 2.0 * tiles * (stage1 + stage2)
 
 
@@ -163,19 +248,21 @@ def conv3x3_pair_gemm(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return conv3x3_pair_plain(x, w1, b1, w2, b2)
     bsz, h, wd, c = x.shape
     cm, co = w1.shape[-1], w2.shape[-1]
-    th, tw, bn = pair_tile(cm, co, x.element_size())
     w1q, w2q = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
+    th, tw, bn1, bn2, resident = pair_tile(
+        c, cm, co, x.element_size(),
+        aligned=all(t.data_ptr() % 16 == 0 for t in (x, w1q, w2q)))
     b1q, b2q = b1.float().contiguous(), b2.float().contiguous()
     out = torch.empty((bsz, h, wd, co), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = build.load("conv3x3_pair")
     fn = lib.egm_conv3x3_pair
-    fn.argtypes = [_P] * 6 + [_I] * 10 + [_P]
+    fn.argtypes = [_P] * 6 + [_I] * 12 + [_P]
     fn.restype = _I
     err = fn(x.data_ptr(), w1q.data_ptr(), b1q.data_ptr(), w2q.data_ptr(),
-             b2q.data_ptr(), out.data_ptr(), bsz, h, wd, c, cm, co, th, tw, bn,
-             DTYPE_CODES[x.dtype], stream_handle(x.device))
+             b2q.data_ptr(), out.data_ptr(), bsz, h, wd, c, cm, co, th, tw, bn1,
+             bn2, int(resident), DTYPE_CODES[x.dtype], stream_handle(x.device))
     build.check_launch(err, "conv3x3_pair_gemm")
     pair_launches += 1
     return out

@@ -6,11 +6,17 @@ shape [B, S, D] and ``num_heads`` heads of width hd = D / num_heads,
     out = merge_heads((softmax(q_h q_h^T * hd^-1/2)
                        + softmax(k_h k_h^T * hd^-1/2)) v_h)
 
-with float32 scores, softmaxes and sums.  The CUDA kernel
-(``csrc/csa_attention.cu``) reads and writes [B, S, D] in place, one block
-per (batch, head, 64-query tile) with two online-softmax accumulators, so no
-[S, S] tensor is stored.  The tensor-core rate bounds the work at the path's
-shape; this version multiplies on the CUDA cores (see PERF.md).
+with float32 scores, softmaxes and sums.  The CUDA kernels
+(``csrc/csa_attention.cu``) read q, k, v where they lie, one block per
+(batch, head, 64-query tile) with two online-softmax accumulators, so no
+[S, S] tensor is stored.  q, k and v may be strided views with last stride 1
+(the three ``chunk`` views of a fused ``in_proj`` output); the result is
+contiguous.  The tensor-core rate bounds the work at the path's shape.
+``csa_variant`` names the kernel a dtype gets: bfloat16 multiplies on the
+tensor cores (``mma.sync`` on bf16 tiles filled by the TMA unit or by
+``cp.async``, the weights rounded to bf16 in registers before they meet v, as
+in ``csa_plain``);
+float32 stays on the CUDA cores, which hold 1e-4 relative (see PERF.md).
 
 ``csa_attention`` launches the kernel for CUDA tensors and runs ``csa_plain``
 for CPU tensors; nothing falls back from one to the other.  It is
@@ -36,6 +42,15 @@ MAX_HEAD_DIM = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+def csa_variant(dtype: torch.dtype) -> str:
+    """The kernel ``csa_attention`` launches for CUDA tensors of ``dtype``:
+    ``"mma_bf16"`` (tensor cores) or ``"cuda_cores_f32"``."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
+    return "mma_bf16" if dtype == torch.bfloat16 else "cuda_cores_f32"
 
 
 def _check(q, k, v, num_heads):
@@ -46,8 +61,9 @@ def _check(q, k, v, num_heads):
             raise ValueError(f"{name} must be [B, S, D], got shape {tuple(t.shape)}")
         if t.dtype not in DTYPE_CODES:
             raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"{name} must have last stride 1, got strides "
+                             f"{tuple(t.stride())}")
         if t.device.type not in ("cpu", "cuda"):
             raise ValueError(f"{name} must lie on the CPU or a CUDA device, got "
                              f"{t.device}")
@@ -79,13 +95,14 @@ def _forward(q, k, v, num_heads):
     if q.device.type == "cpu":
         return csa_plain(q, k, v, num_heads)
     b, s, d = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty((b, s, d), dtype=q.dtype, device=q.device)
     lib = build.load("csa_attention")
     fn = lib.egm_csa_attention
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _P]
     fn.restype = _I
+    strides = [n for t in (q, k, v) for n in (t.stride(1), t.stride(0))]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-             num_heads, d // num_heads, DTYPE_CODES[q.dtype],
+             num_heads, d // num_heads, *strides, DTYPE_CODES[q.dtype],
              stream_handle(q.device))
     build.check_launch(err, "csa_attention")
     launches += 1
@@ -112,8 +129,9 @@ class _CSAFunction(torch.autograd.Function):
 
 def csa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   num_heads: int) -> torch.Tensor:
-    """q, k, v [B, S, D] contiguous, one dtype (float32 or bfloat16), head
-    width D / num_heads <= 128; returns [B, S, D] in that dtype."""
+    """q, k, v [B, S, D] with last stride 1 (any row and batch strides), one
+    dtype (float32 or bfloat16), head width D / num_heads <= 128; returns a
+    contiguous [B, S, D] in that dtype."""
     _check(q, k, v, num_heads)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

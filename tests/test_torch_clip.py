@@ -182,6 +182,39 @@ def test_csa_runs_through_the_kernel_wrapper(pair, monkeypatch):
     assert launch_counts()["csa_attention"] == 0  # CPU: no kernel launch
 
 
+def test_block_hands_in_proj_views_to_csa(pair, monkeypatch):
+    """The block passes the three ``chunk`` views of ``in_proj``'s output to
+    ``csa_attention`` as they are (no contiguous copies), and its output still
+    matches the flax block."""
+    from egm_unet_torch.models.clip import model as pmodel
+
+    jm, v, port = pair
+    block = port.visual.resblock0
+    seen = []
+    real = pmodel.csa_attention
+
+    def spy(q, k, v_, heads):
+        seen.append((q, k, v_))
+        return real(q, k, v_, heads)
+
+    monkeypatch.setattr(pmodel, "csa_attention", spy)
+    x = np.random.default_rng(12).standard_normal((2, 5, 64)).astype(np.float32)
+    out = block(to_torch(x), csa=True)
+    (q, k, v_), = seen
+    width, item = 64, q.element_size()
+    assert q.shape == k.shape == v_.shape == (2, 5, width)
+    assert not q.is_contiguous() and q.stride() == k.stride() == v_.stride() \
+        == (5 * 3 * width, 3 * width, 1)
+    store = q.untyped_storage().data_ptr()
+    assert k.untyped_storage().data_ptr() == v_.untyped_storage().data_ptr() == store
+    assert (k.data_ptr() - q.data_ptr(), v_.data_ptr() - q.data_ptr()) \
+        == (width * item, 2 * width * item)
+    jblock = jmodel.ResidualAttentionBlock(width, block.heads, attn_impl="xla")
+    ref = jax.jit(lambda p, a: jblock.apply({"params": p}, a, csa=True))(
+        v["params"]["visual"]["resblock0"], jnp.asarray(x))
+    assert_close(out, ref, **TOL)
+
+
 def test_bf16_cast_leaves_float32_parameters_alone(pair):
     _, _, ref = pair
     img, tok = _inputs(seed=11)

@@ -4,7 +4,11 @@ einsum path, the gradient through the autograd.Function against jax.grad, and
 the options of ``multi_head_attention``.
 
 Tolerances: float32 2e-4 (softmax sums in another order), bf16 5e-2, the bars
-``tests/test_pallas.py`` sets for the same comparison."""
+``tests/test_pallas.py`` sets for the same comparison.  Strided views against
+the contiguous call: 1e-5 in float32 (the same arithmetic on the same values).
+The tensor-core kernel's rounding profile, emulated on the CPU, is held to the
+bf16 tolerance of the GPU smoke run: one bf16 step of the output's magnitude,
+``2**-7 * max|out|``."""
 
 import jax
 import jax.numpy as jnp
@@ -75,7 +79,8 @@ def test_csa_gradients_match_jax():
         assert_close(got, want, 2e-4, 2e-4)
 
 
-@pytest.mark.parametrize("bad", ["heads", "hd", "dtype", "strided", "shape", "rank"])
+@pytest.mark.parametrize("bad", ["heads", "hd", "dtype", "strided", "mixed", "shape",
+                                 "rank"])
 def test_csa_wrapper_rejects(bad):
     q, k, v = (to_torch(t) for t in _qkv(1, 6, 32))
     h = 4
@@ -87,13 +92,100 @@ def test_csa_wrapper_rejects(bad):
     elif bad == "dtype":
         q = q.half()
     elif bad == "strided":
-        q = torch.cat([q, q], dim=-1)[..., :32]  # a column slice, row stride 64
+        q = torch.cat([q, q], dim=-1)[..., ::2]  # last stride 2
+    elif bad == "mixed":
+        k = k.bfloat16()
     elif bad == "shape":
         k = k[:, :5].contiguous()
     elif bad == "rank":
         q, k, v = q[0], k[0], v[0]
     with pytest.raises((ValueError, TypeError)):
         csa.csa_attention(q, k, v, h)
+
+
+def _views(q, k, v):
+    """q, k, v as the three ``chunk`` views of one [B, S, 3 D] tensor."""
+    return torch.cat([q, k, v], dim=-1).chunk(3, dim=-1)
+
+
+@pytest.mark.parametrize("b,s,d,h", SHAPES + [(3, 33, 27, 3)])
+def test_csa_attention_takes_strided_views(b, s, d, h):
+    q, k, v = map(to_torch, _qkv(b, s, d, seed=7))
+    vq, vk, vv = _views(q, k, v)
+    assert not vq.is_contiguous() and vq.stride() == (s * 3 * d, 3 * d, 1)
+    out = csa.csa_attention(vq, vk, vv, h)
+    assert out.is_contiguous() and out.shape == (b, s, d)
+    assert_close(out, csa.csa_attention(q, k, v, h), 1e-5, 1e-5)
+    ref = jcsa(*(jnp.asarray(t.numpy()) for t in (q, k, v)), h, interpret=True)
+    assert_close(out, ref, 2e-4, 2e-4)
+    # a row-strided view (every other token) is a view with last stride 1 too
+    out2 = csa.csa_attention(vq[:, ::2], vk[:, ::2], vv[:, ::2], h)
+    assert_close(out2, csa.csa_attention(q[:, ::2].contiguous(), k[:, ::2].contiguous(),
+                                         v[:, ::2].contiguous(), h), 1e-5, 1e-5)
+
+
+def test_csa_gradients_flow_through_views():
+    q, k, v = map(to_torch, _qkv(2, 9, 32, seed=8))
+    with torch.enable_grad():
+        qkv = torch.cat([q, k, v], dim=-1).requires_grad_(True)
+        csa.csa_attention(*qkv.chunk(3, dim=-1), 4).square().sum().backward()
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        csa.csa_plain(*leaves, 4).square().sum().backward()
+    assert_close(qkv.grad, torch.cat([t.grad for t in leaves], dim=-1), 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_csa_variant(dtype):
+    want = {torch.float32: "cuda_cores_f32", torch.bfloat16: "mma_bf16"}[dtype]
+    assert csa.csa_variant(dtype) == want
+    with pytest.raises(TypeError):
+        csa.csa_variant(torch.float16)
+
+
+def csa_mma_emulation(q, k, v, num_heads, key_tile=64):
+    """The rounding profile of the tensor-core kernel, in plain PyTorch on
+    bfloat16 inputs: per head, float32 scores from the unscaled bf16 operands,
+    an online softmax over tiles of ``key_tile`` keys per state (running
+    maximum of the raw scores, weights ``exp2(s*c - m*c)``), the weights
+    rounded to bf16 before they meet v with float32 sums, the row sums taken
+    from the float32 weights, and ``O1 / l1 + O2 / l2`` rounded once."""
+    b, s, d = q.shape
+    hd = d // num_heads
+    c = np.float32(1.4426950408889634 / np.sqrt(hd))
+    heads = lambda t: t.reshape(b, s, num_heads, hd).permute(0, 2, 1, 3).float()
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    out = torch.zeros_like(qh)
+    for a in (qh, kh):
+        m = torch.full((b, num_heads, s, 1), -np.inf)
+        l = torch.zeros((b, num_heads, s, 1))
+        o = torch.zeros_like(qh)
+        for k0 in range(0, s, key_tile):
+            sc = a @ a[:, :, k0:k0 + key_tile].transpose(-1, -2)  # exact bf16 products
+            mn = torch.maximum(m, sc.amax(-1, keepdim=True))
+            corr = torch.exp2((m - mn) * c)
+            p = torch.exp2(sc * c - mn * c)
+            l = l * corr + p.sum(-1, keepdim=True)
+            o = o * corr + p.bfloat16().float() @ vh[:, :, k0:k0 + key_tile]
+            m = mn
+        out = out + o / l
+    return out.permute(0, 2, 1, 3).reshape(b, s, d).to(q.dtype)
+
+
+# a shape like the path's and the odd shapes of the GPU smoke run
+EMULATION_SHAPES = [(2, 485, 128, 2), (2, 10, 32, 4), (1, 64, 64, 1), (1, 17, 64, 2),
+                    (3, 197, 768, 12), (2, 70, 200, 2), (2, 100, 128, 2), (3, 33, 27, 3),
+                    (2, 5, 64, 1), (1, 64, 128, 2), (1, 65, 128, 2)]
+
+
+@pytest.mark.parametrize("b,s,d,h", EMULATION_SHAPES)
+def test_mma_rounding_profile_within_gpu_tolerance(b, s, d, h):
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = [(torch.randn(b, s, d, generator=gen) * sc).bfloat16()
+               for sc in (1.5, 1.0, 1.0)]  # the smoke run's operand scales
+    ref = csa.csa_plain(q, k, v, h).float()
+    got = csa_mma_emulation(q, k, v, h, key_tile=64 if d // h <= 64 else 32).float()
+    tol = 2.0 ** -7 * max(ref.abs().max().item(), 1e-3)
+    assert (got - ref).abs().max().item() <= tol
 
 
 def test_attention_bias_and_weights():

@@ -6,8 +6,8 @@ Tolerances: float32 agrees to 1e-5 (the same float32 products summed in
 another order); bfloat16 to one bfloat16 rounding step (2**-7 relative) of
 the output's magnitude, since the two round the same float32 values.  K3's
 and K4's plain versions are held against their Pallas kernels in
-test_torch_routes.py; their wrappers' CPU routing, argument checks and tile
-choice are here."""
+test_torch_routes.py; their wrappers' CPU routing, argument checks, tile
+choice, shared-memory reckoning, FLOP count and kernel variant are here."""
 
 import numpy as np
 import pytest
@@ -181,27 +181,104 @@ def test_pair_and_upsample_wrappers_reject_bad_arguments():
         resize2x.upsample2x_fused(x.permute(0, 2, 1, 3))
 
 
-@pytest.mark.parametrize("cm,co,itemsize,tile", [
-    (32, 32, 2, (8, 16, 32)),      # the stem and up4: narrow sub-tiles
-    (64, 32, 2, (8, 16, 64)),
-    (256, 128, 2, (8, 16, 64)),    # up1 in bfloat16: 92 KB
-    (256, 128, 4, (8, 16, 64)),    # up1 in float32: 184 KB
-    (512, 256, 2, (8, 16, 64)),    # vanilla unet, base_c 64, bfloat16
-    (512, 256, 4, (8, 8, 64)),     # ... in float32: 360 KB at 8x16, 200 KB at 8x8
-    (1300, 8, 4, (4, 4, 64)),
-    (3000, 4, 4, (2, 2, 64)),
+@pytest.mark.parametrize("c,cm,co,itemsize,tile", [
+    # the five sites of the pair / fused-upsample route, bfloat16 (tensor cores)
+    (3, 32, 32, 2, (8, 16, 32, 32, True)),        # the stem: weights resident, 70 KB
+    (64, 32, 32, 2, (8, 16, 32, 32, True)),       # up4: weights resident, 104 KB
+    (128, 64, 32, 2, (16, 16, 64, 32, False)),    # up3
+    (256, 128, 64, 2, (16, 16, 64, 64, False)),   # up2: 203 KB
+    (512, 256, 128, 2, (8, 16, 128, 128, False)),  # up1: 16x16 would need 292 KB
+    # ... and in float32 (CUDA cores)
+    (3, 32, 32, 4, (8, 16, 32, 32, False)),       # narrow sub-tiles
+    (128, 64, 32, 4, (8, 16, 64, 64, False)),
+    (512, 256, 128, 4, (8, 16, 64, 64, False)),   # 184 KB
+    # vanilla unet, base_c 64
+    (1024, 512, 256, 2, (8, 8, 64, 64, False)),
+    (1024, 512, 256, 4, (8, 8, 64, 64, False)),   # 360 KB at 8x16, 200 KB at 8x8
+    # the odd widths of the GPU smoke run: every tile and chunk pair
+    (16, 200, 24, 2, (8, 16, 128, 64, False)),
+    (16, 200, 20, 2, (8, 8, 64, 64, False)),      # Co % 8 != 0: no tile of the TMA unit
+    (16, 208, 136, 2, (8, 16, 128, 128, False)),
+    (5, 20, 33, 2, (8, 16, 64, 64, True)),
+    (8, 40, 24, 2, (8, 16, 64, 32, True)),
+    (32, 72, 40, 2, (16, 16, 64, 64, False)),
+    (33, 70, 40, 2, (8, 8, 64, 64, False)),       # C, Cm % 8 != 0 likewise
+    (512, 32, 32, 2, (16, 16, 64, 32, False)),    # narrow, but 32 chunks of w1 do not fit
+    (8, 400, 16, 2, (8, 8, 64, 64, False)),
+    (8, 800, 16, 2, (4, 4, 64, 64, False)),
+    (8, 1300, 8, 2, (4, 4, 64, 64, False)),
+    (8, 1300, 8, 4, (4, 4, 64, 64, False)),
+    (4, 3000, 4, 2, (2, 2, 64, 64, False)),
+    (4, 3000, 4, 4, (2, 2, 64, 64, False)),
 ])
-def test_pair_tile_fits_shared_memory(cm, co, itemsize, tile):
-    assert conv3x3.pair_tile(cm, co, itemsize) == tile
-    th, tw, bn = tile
-    need = 4 * 16 * (68 + bn) + (th + 2) * (tw + 2) * cm * itemsize
-    assert need <= conv3x3.PAIR_SMEM_LIMIT
+def test_pair_tile_fits_shared_memory(c, cm, co, itemsize, tile):
+    assert conv3x3.pair_tile(c, cm, co, itemsize) == tile
+    th, tw, bn1, bn2, resident = tile
+    need = conv3x3.pair_smem_bytes(tile, c, cm, co, itemsize)
+    assert need <= (conv3x3.PAIR_RESIDENT_LIMIT if resident else conv3x3.PAIR_SMEM_LIMIT)
+    halo = (th + 2) * (tw + 2)
+    if itemsize == 4:  # float32 staging of a K chunk of 16 + the intermediate
+        assert need == 4 * 16 * (68 + bn1) + halo * cm * 4
+    else:
+        up16 = lambda n: -(-n // 16) * 16
+        mid = halo * (up16(cm) + 8) * 2  # the padded pitch is never a multiple of 128 bytes
+        assert (up16(cm) + 8) * 2 % 128 != 0
+        xbuf = (th + 4) * (tw + 4) * 24 * 2
+        wtile = lambda bn: 9 * 16 * (bn + 8) * 2
+        if resident:
+            want = mid + 2 * xbuf + -(-cm // bn1) * -(-c // 16) * wtile(bn1) \
+                + -(-co // bn2) * -(-cm // 16) * wtile(bn2)
+        elif (th, tw) in ((16, 16), (8, 16)):  # TMA: dense slots on 1 KB boundaries
+            ring = {64: 3, 128: 2}[max(bn1, bn2)]
+            xdense = -(-(th + 4) * (tw + 4) * 32 // 1024) * 1024
+            want = mid + ring * (xdense + max(bn1, bn2) // 64 * 9 * 16 * 128) + 1024
+        else:
+            ring = {32: 4, 64: 3, 128: 2}[max(bn1, bn2)]
+            want = mid + ring * (xbuf + wtile(max(bn1, bn2)))
+        assert need == want
+
+
+def test_pair_tile_leaves_the_tma_tiles_to_aligned_tensors():
+    """The 16x16 tile and the 8x16 tile with 128-column chunks are filled by
+    16-byte copies of the TMA unit: off the 16-byte grid the next tile down
+    serves; the resident-weight tile (cp.async or scalar loaders) and float32
+    do not care."""
+    assert conv3x3.pair_tile(128, 64, 32, 2, aligned=False) == (8, 8, 64, 64, False)
+    assert conv3x3.pair_tile(512, 256, 128, 2, aligned=False) == (8, 8, 64, 64, False)
+    assert conv3x3.pair_tile(64, 32, 32, 2, aligned=False) == (8, 16, 32, 32, True)
+    assert conv3x3.pair_tile(512, 256, 128, 4, aligned=False) == (8, 16, 64, 64, False)
 
 
 def test_pair_tile_refuses_what_cannot_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        conv3x3.pair_tile(4000, 8, 4)
+    for itemsize, cm in ((4, 4000), (2, 8000)):
+        with pytest.raises(ValueError, match="shared memory"):
+            conv3x3.pair_tile(8, cm, 8, itemsize)
     needed, executed = conv3x3.pair_flops((8, 72, 96, 512), 256, 128, 2)
     assert needed == 2.0 * 8 * 72 * 96 * 9 * (512 * 256 + 256 * 128)
     # 8x16 tiles: conv1 on 192 padded halo rows per 128 pixels
     assert executed == 2.0 * 8 * 9 * 6 * (192 * 256 * 4608 + 128 * 128 * 2304)
+
+
+@pytest.mark.parametrize("shape,cm,co,itemsize,hand", [
+    # up3, bfloat16: 16x16 tiles, 324 halo rows padded to 336, Co = 32 in one chunk of 32
+    ((8, 288, 384, 128), 64, 32, 2, 2.0 * 8 * 18 * 24 * (336 * 64 * 9 * 128 + 256 * 32 * 9 * 64)),
+    # the stem, bfloat16: C = 3 padded to 16 per tap
+    ((8, 576, 768, 3), 32, 32, 2, 2.0 * 8 * 72 * 48 * (192 * 32 * 9 * 16 + 128 * 32 * 9 * 32)),
+    # the stem, float32: 180 halo rows padded to 192, K = 27 to 32
+    ((8, 576, 768, 3), 32, 32, 4, 2.0 * 8 * 72 * 48 * (192 * 32 * 32 + 128 * 32 * 288)),
+    # ragged map: tiles are counted whole
+    ((1, 9, 20, 16), 200, 24, 2, 2.0 * 2 * 2 * (192 * 256 * 9 * 16 + 128 * 64 * 9 * 208)),
+])
+def test_pair_flops_counts_padded_tiles(shape, cm, co, itemsize, hand):
+    needed, executed = conv3x3.pair_flops(shape, cm, co, itemsize)
+    b, h, w, c = shape
+    assert needed == 2.0 * b * h * w * 9 * (c * cm + cm * co)
+    assert executed == hand and executed >= needed
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "mma_bf16"),
+                                           (torch.float32, "cuda_cores_f32")])
+def test_pair_variant_is_a_function_of_dtype(dtype, variant):
+    assert conv3x3.pair_variant(dtype) == variant
+    with pytest.raises(TypeError):
+        conv3x3.pair_variant(torch.float16)

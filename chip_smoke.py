@@ -18,11 +18,13 @@ shapes the main paths give it, and drives the main paths at full width:
 It then checks the card against the CPU on small inputs, for the UNets on
 every route and for a small CLIPSeg.
 
-``conv3x3_pair_gemm`` and ``csa_attention`` have two hand-written kernels
-each, chosen by dtype: bfloat16 multiplies on the tensor cores (``mma_bf16``),
-float32 on the CUDA cores (``cuda_cores_f32``).  Their ``kernel`` records
-carry the wrapper's choice as ``variant``, and the run fails if a bfloat16
-record is not ``mma_bf16``.  ``csa_attention``'s path record is taken as the
+``conv3x3_gemm``, ``conv3x3_pair_gemm``, ``up_concat_conv`` and
+``csa_attention`` have two hand-written kernels each, chosen by dtype:
+bfloat16 multiplies on the tensor cores (``mma_bf16``), float32 on the CUDA
+cores (``cuda_cores_f32``).  Their ``kernel`` records carry the wrapper's
+choice as ``variant`` (and the three convolutions' their ``tile`` and
+executed FLOPs), and the run fails if a bfloat16 record is not ``mma_bf16``
+or a float32 one not ``cuda_cores_f32``.  ``csa_attention``'s path record is taken as the
 transformer blocks give it, on the three ``chunk`` views of one fused
 ``in_proj`` output (``layout: in_proj_views``); a record on contiguous tensors
 stands beside it.
@@ -314,14 +316,24 @@ def site_call(site, cast):
     up_pair = kwargs.get("up_pair")
     if up_pair is not None:
         x2, x1 = cast(up_pair[0].contiguous()), cast(up_pair[1].contiguous())
-        co = k.shape[-1]
+        c2, c1, co = x2.shape[-1], x1.shape[-1], k.shape[-1]
         out_numel = x2.shape[0] * x2.shape[1] * x2.shape[2] * co
-        flops = 2.0 * out_numel * 9 * k.shape[2]
+        needed, executed = upconv.upconv_flops(tuple(x2.shape), c1, co, x2.element_size())
+        x1_nchw, x2_nchw = x1.permute(0, 3, 1, 2), x2.permute(0, 3, 1, 2)
+        k_oihw = k.permute(3, 2, 0, 1).contiguous()
+        b_lib = b.to(x2.dtype)  # the kernel's bias, rounded to the working dtype
+
+        def up_library():  # upsample, concat, cuDNN conv + bias + ReLU, timed only
+            up = F.interpolate(x1_nchw, scale_factor=2, mode="bilinear", align_corners=True)
+            return F.relu(F.conv2d(torch.cat([x2_nchw, up], 1), k_oihw, b_lib, padding=1))
         return ("up_concat_conv",
                 ("up", tuple(x2.shape), tuple(x1.shape), co, str(x2.dtype)),
                 lambda: upconv.up_concat_conv(x2, x1, k, b),
-                lambda: upconv.up_concat_conv_plain(x2, x1, k, b), None,
-                nbytes(x2, x1, k, b) + out_numel * x2.element_size(), flops, x2.dtype)
+                lambda: upconv.up_concat_conv_plain(x2, x1, k, b), up_library,
+                nbytes(x2, x1, k, b) + out_numel * x2.element_size(), needed, x2.dtype,
+                {"executed_flops": executed,
+                 "tile": list(upconv.upconv_tile(c2, c1, co, x2.element_size())),
+                 "variant": upconv.upconv_variant(x2.dtype)})
     x = cast(args[0].contiguous())
     relu = mod.relu if isinstance(mod, BasicConv) else True
     co = k.shape[-1]
@@ -331,11 +343,14 @@ def site_call(site, cast):
 
     def library():  # cuDNN's conv of the same inputs, timed only
         return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias_lib, padding=1)
+    needed, executed = conv3x3.conv3x3_flops(tuple(x.shape), co, x.element_size())
     return ("conv3x3_gemm", ("conv", tuple(x.shape), co, relu, str(x.dtype)),
             lambda: conv3x3.conv3x3_gemm(x, k, b, relu=relu),
             lambda: conv3x3.conv3x3_plain(x, k, b, relu=relu), library,
-            nbytes(x, k, b) + out_numel * x.element_size(),
-            2.0 * out_numel * 9 * x.shape[-1], x.dtype)
+            nbytes(x, k, b) + out_numel * x.element_size(), needed, x.dtype,
+            {"executed_flops": executed,
+             "tile": list(conv3x3.conv3x3_tile(x.shape[-1], co, x.element_size())),
+             "variant": conv3x3.conv3x3_variant(x.dtype)})
 
 
 def csa_call(shape, dtype, seed: int = SEED, views: bool = False):
@@ -442,7 +457,8 @@ def phase_kernels(pred, pair_pred, images) -> list:
     records.append(kernel_record(site, csa_call(CSA_PATH_SHAPE, torch.float32, views=True), 5))
     torch.cuda.empty_cache()
     for r in records:
-        if r["name"] in ("conv3x3_pair_gemm", "csa_attention"):
+        if r["name"] in ("conv3x3_gemm", "conv3x3_pair_gemm", "up_concat_conv",
+                         "csa_attention"):
             want = "mma_bf16" if r["dtype"] == "bfloat16" else "cuda_cores_f32"
             check(r.get("variant") == want,
                   f"{r['name']} {r['dtype']} at {r['site']}: variant {r.get('variant')}")
@@ -454,7 +470,8 @@ def phase_kernels(pred, pair_pred, images) -> list:
 
 def phase_edges() -> None:
     """Each kernel against its plain version at small odd shapes: partial
-    pixel and channel tiles, C=3, every output-width tile config; for K6,
+    pixel and channel tiles, C=3, every tile the choosers of K2, K3 and K5
+    can pick; for K5, C2 != C1, C2 off the 16-grid, h = 1 and w = 1; for K6,
     sequence lengths off the 64-row tiles, every head-width template, and
     strided views on and off the 16-byte grid; for
     the pair kernel, maps smaller than a tile (down to 1x1), Cm != Co, and
@@ -466,26 +483,47 @@ def phase_edges() -> None:
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         cases = []
-        for c, co in ((3, 7), (5, 20), (33, 70)):
-            x, w, b = rnd(2, 7, 9, c).to(dtype), rnd(3, 3, c, co, scale=0.3), rnd(co)
-            cases.append(("conv3x3_gemm", lambda x=x, w=w, b=b: conv3x3.conv3x3_gemm(
-                x, w, b, relu=True), lambda x=x, w=w, b=b: conv3x3.conv3x3_plain(
-                x, w, b, relu=True)))
-        x, w = rnd(1, 9, 11, 8).to(dtype), rnd(3, 3, 8, 5, scale=0.3)
-        cases.append(("conv3x3_gemm", lambda x=x, w=w: conv3x3.conv3x3_gemm(x, w),
-                      lambda x=x, w=w: conv3x3.conv3x3_plain(x, w)))
+        # K2: every tile conv3x3_tile picks (resident 16 / 32 / 64 columns;
+        # the TMA unit's 8x16 x 32, 16x16 x 64, 8x16 x 128; cp.async 8x16 x
+        # 64), C = 3, Co = 8 and 16, channel counts off the 8-grid, Co above
+        # the widest chunk, a 1x1 map, x off the 16-byte grid, with and
+        # without bias and ReLU
+        for b_, h, w_, c, co, bias, relu in (
+                (2, 7, 9, 3, 7, True, True), (2, 7, 9, 5, 20, True, True),
+                (2, 7, 9, 33, 70, True, True), (1, 9, 11, 8, 5, False, False),
+                (2, 11, 13, 64, 8, True, True), (1, 9, 20, 128, 16, True, True),
+                (1, 1, 1, 16, 24, True, True), (1, 5, 30, 24, 40, True, False),
+                (1, 9, 20, 256, 32, True, True), (1, 17, 19, 128, 64, True, True),
+                (2, 9, 20, 64, 136, True, False), (1, 3, 2, 64, 136, False, True)):
+            x, w = rnd(b_, h, w_, c).to(dtype), rnd(3, 3, c, co, scale=(2 / (9 * c)) ** 0.5)
+            b = rnd(co) if bias else None
+            cases.append(("conv3x3_gemm", lambda x=x, w=w, b=b, r=relu: conv3x3.conv3x3_gemm(
+                x, w, b, relu=r), lambda x=x, w=w, b=b, r=relu: conv3x3.conv3x3_plain(
+                x, w, b, relu=r)))
+        x = rnd(x.numel() + 1).to(dtype)[1:].view(x.shape)  # off the 16-byte grid
+        cases.append(("conv3x3_gemm", lambda x=x, w=w: conv3x3.conv3x3_gemm(x, w, relu=True),
+                      lambda x=x, w=w: conv3x3.conv3x3_plain(x, w, relu=True)))
         for b_, h, w_, c in ((2, 9, 13, 20), (1, 5, 17, 36)):
             x = rnd(b_, h, w_, c).to(dtype)
             g = [torch.rand(b_, n, generator=gen).cuda() for n in (h, w_, c)]
             cases.append(("mca_fused", lambda x=x, g=g: mca.mca_fused(x, *g),
                           lambda x=x, g=g: mca.mca_plain(x, *g)))
-        for b_, h, w_, c1, c2, co in ((2, 5, 7, 6, 10, 9), (1, 3, 4, 40, 24, 33)):
+        # K5: every tile upconv_tile picks (resident 16 / 32 / 64; the TMA
+        # unit's 64 and 128 columns; cp.async 64 and 128), C2 != C1, C2 % 16
+        # != 0 (on and off the 8-grid), h = 1, w = 1, Co above the widest chunk
+        k5 = [(2, 5, 7, 6, 10, 9), (1, 3, 4, 40, 24, 33), (2, 1, 6, 16, 24, 40),
+              (1, 5, 1, 8, 8, 16), (1, 1, 1, 16, 16, 16), (2, 7, 5, 32, 32, 32),
+              (1, 6, 9, 64, 64, 64), (1, 5, 9, 32, 48, 136), (1, 4, 7, 40, 24, 72)]
+        for i, (b_, h, w_, c1, c2, co) in enumerate(k5):
             x1, x2 = rnd(b_, h, w_, c1).to(dtype), rnd(b_, 2 * h, 2 * w_, c2).to(dtype)
-            k, bias = rnd(3, 3, c1 + c2, co, scale=0.2), rnd(co)
-            cases.append(("up_concat_conv",
-                          lambda a=x2, b=x1, k=k, s=bias: upconv.up_concat_conv(a, b, k, s),
-                          lambda a=x2, b=x1, k=k, s=bias: upconv.up_concat_conv_plain(
-                              a, b, k, s)))
+            if i == len(k5) - 1:  # once more off the 16-byte grid: cp.async, 128 columns
+                x2_off = rnd(x2.numel() + 1).to(dtype)[1:].view(x2.shape)
+            k = rnd(3, 3, c1 + c2, co, scale=(2 / (9 * (c1 + c2))) ** 0.5)
+            bias = rnd(co)
+            for a in ((x2, x1), (x2_off, x1)) if i == len(k5) - 1 else ((x2, x1),):
+                cases.append(("up_concat_conv",
+                              lambda a=a, k=k, s=bias: upconv.up_concat_conv(*a, k, s),
+                              lambda a=a, k=k, s=bias: upconv.up_concat_conv_plain(*a, k, s)))
         for b_, h, w_, c, cm, co in ((2, 7, 9, 3, 7, 5), (1, 1, 1, 4, 4, 4),
                                      (1, 2, 2, 3, 8, 6), (1, 3, 3, 5, 20, 33),
                                      (2, 17, 19, 33, 70, 40), (1, 5, 30, 16, 32, 32),
@@ -571,7 +609,8 @@ def phase_serving(pred, dev) -> dict:
         "foreground_share": float(np.mean([mk.mean() for mk in masks]))}
     emit(rec)
     phase_profile("profile", lambda: pred.forward(x), "serving_profile.txt",
-                  {"conv3x3_gemm+up_concat_conv": "igemm3x3_kernel",
+                  {"conv3x3_gemm": "conv3x3_mma_kernel",
+                   "up_concat_conv": "upconv_mma_kernel",
                    "mca_fused": "mca_fused_kernel"})
     return rec
 
@@ -694,7 +733,7 @@ def phase_serve(httpd, batcher, pred, dev) -> dict:
     phase_profile("serve_profile", lambda: pair_pred.forward(x), "serve_profile.txt",
                   {"conv3x3_pair_gemm": "pair_mma_kernel",
                    "upsample2x_fused": "upsample2x_kernel",
-                   "conv3x3_gemm": "igemm3x3_kernel", "mca_fused": "mca_fused_kernel"})
+                   "conv3x3_gemm": "conv3x3_mma_kernel", "mca_fused": "mca_fused_kernel"})
     return rec
 
 

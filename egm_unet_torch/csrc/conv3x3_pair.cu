@@ -24,22 +24,15 @@
 // - bfloat16, "mma_bf16" (pair_mma_kernel): both GEMMs run on the tensor cores
 //   (mma.sync m16n8k16, bf16 operands, float32 accumulators; bf16 products are
 //   exact in float32, so only the order of the sums differs from the plain
-//   version).  Eight warps, 4 along M x 2 along N, walk N in chunks of BN (32,
-//   64 or 128 per stage; a warp's tile is up to 48 x 64, which is what keeps
-//   the shared-memory traffic per product down) and K in steps of 16 channels
-//   x all nine taps, nine 16-deep products per step.  The A operand is never
-//   staged as a matrix: ldmatrix takes one row address per lane, so the 3x3
-//   gather is an address offset (dy*PW + dx)*pitch.  Stage 1 gathers from a
-//   16-channel chunk of the (TH+4)(TW+4) input halo, brought in by 16-byte
-//   cp.async whose zero fill is conv1's zero padding; stage 2 gathers straight
-//   from the intermediate.  The row pitches are 16*m + 8 elements, never a
-//   multiple of 128 bytes, so the eight rows of a fragment fall into distinct
-//   banks; the intermediate's pad channels are written as zeros.  The weights
-//   come straight from the HWIO tensor viewed as row-major [9*Cin, N] into a
-//   ring of [9*16, BN] tiles, the next steps' tiles in flight while the tensor
-//   cores work on this one; ldmatrix.trans makes the col-major B fragment, so
-//   nothing is repacked on the host.  Rows past the channel count and columns
-//   past N are zero-filled.
+//   version).  Both stages are the implicit-GEMM stage of igemm_mma.cuh,
+//   shared with K2 (conv3x3.cu) and K5 (up_concat_conv.cu): eight warps, 4
+//   along M x 2 along N, walk N in chunks of BN (32, 64 or 128 per stage; a
+//   warp's tile is up to 48 x 64, which is what keeps the shared-memory
+//   traffic per product down) and K in steps of 16 channels x all nine taps,
+//   A gathered by ldmatrix row addresses.  Stage 1 gathers from a 16-channel
+//   chunk of the (TH+4)(TW+4) input halo, whose zero fill is conv1's zero
+//   padding; stage 2 gathers straight from the intermediate, whose row pitch
+//   is 16*m + 8 elements and whose pad channels are written as zeros.
 //   Who copies depends on the tile.  The wide sites' tiles (16x16, and 8x16
 //   with 128-column chunks) are filled by the TMA unit: thread 0 starts one
 //   tensor-map copy for the input-halo chunk (a [B, H, W, C] map, box 16
@@ -85,7 +78,7 @@
 // PERF.md for what it reaches.  Any C, Cm, Co and any H, W: ragged tiles are
 // masked.
 #include "common.cuh"
-#include "mma.cuh"
+#include "igemm_mma.cuh"
 
 namespace {
 
@@ -283,52 +276,47 @@ int launch(const T* x, const T* w1, const float* b1, const T* w2, const float* b
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using egm::igemm::bf16;
+using egm::igemm::CC;
+using egm::igemm::NT;
+using egm::igemm::WROWS;
+using egm::igemm::aligned16;
+using egm::igemm::gemm_stage;
+using egm::igemm::load_weights;
+using egm::igemm::map_hwio;
+using egm::igemm::map_nhwc;
+using egm::igemm::opt_in_smem;
+using egm::igemm::persistent_blocks;
+using egm::igemm::resident_elems;
+using egm::igemm::round_up;
+using egm::igemm::Ring;
+using egm::igemm::Slots;
+using egm::igemm::SrcBuf;
+using egm::igemm::SrcHalo;
+using egm::igemm::StageIn;
 using egm::mma::smem_addr;
-
-constexpr int NT = 256;        // 8 warps
-constexpr int WM = 4, WN = 2;  // warps along M and along N
-constexpr int CC = 16;         // channels per pipeline step (all nine taps of them)
-constexpr int XP = CC + 8;     // row pitch of the input-halo chunk
-constexpr int WROWS = 9 * CC;  // weight rows per step
-constexpr int WBOX = WROWS * 64;  // elements of one 64-column weight box (TMA)
-
-__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
-// Ring depth by the wider column chunk: R - 1 steps load while one is
-// multiplied.  Narrow sites have short steps and small slots, so they keep
-// more loads in flight; at 128 columns two slots are what fits beside any
-// intermediate the 8x16 tile takes (a third did not pay where it fits).
-__host__ __device__ constexpr int ring_depth(int bn) {
-  return bn <= 32 ? 4 : bn <= 64 ? 3 : 2;
-}
 
 struct Flags {
   int vec_x, vec_w1, vec_w2;  // 16-byte copies are possible for x, w1, w2
 };
 
 // The shared-memory layout, shared by the kernel and the launch: the
-// intermediate [P1][mid_pitch], then R ring slots, each the input-halo chunk
-// followed by the weight tile.  By cp.async the chunk is [NPX][XP] and the
-// tile [WROWS][BN + 8].  WRES (the weights stay resident): the slots hold the
-// input-halo chunk only, and behind the ring lie all weight tiles of stage 1,
-// then of stage 2, in step order.  TMA (the copy unit fills the slots): the
-// chunk is dense [NPX][CC] with the 32-byte swizzle, the tile one or two
-// boxes [WROWS][64] with the 128-byte swizzle, and the ring starts on a
-// multiple of 1024 bytes, since the swizzles are functions of the address.
+// intermediate [P1][mid_pitch], then R ring slots (igemm_mma.cuh::Slots, for
+// the wider column chunk), each the input-halo chunk followed by the weight
+// tile.  WRES (the weights stay resident): the slots hold the input-halo chunk
+// only, and behind the ring lie all weight tiles of stage 1, then of stage 2,
+// in step order.  TMA: the ring starts on a multiple of 1024 bytes.
 template <int TH, int TW, int BN1, int BN2, bool WRES, bool TMA>
 struct Layout {
-  static_assert(!(WRES && TMA), "resident weights come by cp.async");
   static constexpr int PW = TW + 2, P1 = (TH + 2) * PW, P2 = TH * TW;
   static constexpr int PWX = TW + 4, NPX = (TH + 4) * PWX;
   static constexpr int BNMAX = BN1 > BN2 ? BN1 : BN2;
-  static constexpr int XBUF = TMA ? round_up(NPX * CC, 512) : NPX * XP;
-  static constexpr int WTILE = TMA ? (BNMAX + 63) / 64 * WROWS * 64 : WROWS * (BNMAX + 8);
-  static constexpr int SLOT = WRES ? XBUF : XBUF + WTILE;
-  static constexpr int R = WRES ? 2 : ring_depth(BNMAX);
+  using S = Slots<NPX, BNMAX, WRES, TMA>;
+  static constexpr int XBUF = S::XBUF, SLOT = S::SLOT, R = S::R;
   __host__ __device__ static int mid_pitch(int Cm) { return round_up(Cm, 16) + 8; }
   // elements of the resident weight tiles of a stage Cin -> N walked in BN columns
   __host__ __device__ static int resident(int Cin, int N, int BN) {
-    return ((N + BN - 1) / BN) * ((Cin + CC - 1) / CC) * WROWS * (BN + 8);
+    return resident_elems((Cin + CC - 1) / CC, N, BN);
   }
   __host__ static size_t bytes(int C, int Cm, int Co) {
     size_t n = (size_t)P1 * mid_pitch(Cm) + R * SLOT;
@@ -336,244 +324,6 @@ struct Layout {
     return sizeof(bf16) * n + (TMA ? 1024 : 0);
   }
 };
-
-// what one GEMM stage reads, and the ring it stages it in
-struct StageIn {
-  const bf16* a_buf;  // stage 2: the intermediate
-  int a_pitch;        // row pitch of the A grid, elements
-  const bf16* wt;     // [9*Cin, N]
-  int Cin, N;
-  bool vec_w;
-  const bf16* wres;          // WRES: this stage's resident tiles
-  const CUtensorMap* map_w;  // TMA: wt as [9][Cin][N]
-  const bf16* xb;            // stage 1: this image, and the tile's origin
-  int H, W, y0, x0, b;
-  bool vec_x;
-  const CUtensorMap* map_x;  // TMA: x as [B][H][W][C]
-};
-
-struct Ring {
-  bf16* base;
-  unsigned long long* bars;  // TMA: one mbarrier per slot
-  int used;                  // TMA: steps that went through the ring so far
-};
-
-// The weights of channel chunk cc of the [9*Cin, N] matrix wt as [9*CC][BN + 8]:
-// row tap*CC + r is row tap*Cin + cc*CC + r, columns n0 .. n0 + BN; zeros where
-// the channel is past Cin or the column past N.
-template <int BN>
-__device__ __forceinline__ void load_weights(bf16* tile, const bf16* __restrict__ wt, int Cin,
-                                             int N, int n0, int cc, bool vec) {
-  constexpr int WP = BN + 8;
-  if (vec) {
-    constexpr int PIECES = BN / 8;
-    for (int e = threadIdx.x; e < WROWS * PIECES; e += NT) {
-      const int r = e / PIECES, col = (e % PIECES) * 8;
-      const int c = cc * CC + r % CC;
-      const bool ok = c < Cin && n0 + col < N;
-      egm::mma::cp_async_16(smem_addr(tile + r * WP + col),
-                            ok ? wt + ((long long)(r / CC) * Cin + c) * N + n0 + col : wt, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < WROWS * BN; e += NT) {
-      const int r = e / BN, col = e % BN;
-      const int c = cc * CC + r % CC;
-      tile[r * WP + col] = (c < Cin && n0 + col < N)
-                               ? wt[((long long)(r / CC) * Cin + c) * N + n0 + col]
-                               : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// Channels cc*CC .. +CC of the (TH+4) x PWX input halo whose top-left pixel is
-// (y0 - 2, x0 - 2), as [NPX][XP]; zeros outside the image (conv1's padding)
-// and past C.
-template <int NPX, int PWX>
-__device__ __forceinline__ void load_x_chunk(bf16* buf, const bf16* __restrict__ xb, int H,
-                                             int W, int C, int y0, int x0, int cc, bool vec) {
-  if (vec) {
-    constexpr int PIECES = CC / 8;
-    for (int e = threadIdx.x; e < NPX * PIECES; e += NT) {
-      const int px = e / PIECES, c = cc * CC + (e % PIECES) * 8;
-      const int yy = y0 - 2 + px / PWX, xx = x0 - 2 + px % PWX;
-      const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W && c < C;
-      egm::mma::cp_async_16(smem_addr(buf + px * XP + (e % PIECES) * 8),
-                            ok ? xb + ((long long)yy * W + xx) * C + c : xb, ok);
-    }
-  } else {  // one pixel per thread: CC independent 2-byte loads, two 16-byte stores
-    for (int px = threadIdx.x; px < NPX; px += NT) {
-      const int yy = y0 - 2 + px / PWX, xx = x0 - 2 + px % PWX;
-      const bool inside = yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const bf16* src = xb + ((long long)yy * W + xx) * C + cc * CC;
-      const int valid = inside ? min(CC, C - cc * CC) : 0;
-      __align__(16) bf16 row[CC];
-#pragma unroll
-      for (int j = 0; j < CC; ++j) row[j] = j < valid ? src[j] : __float2bfloat16_rn(0.f);
-#pragma unroll
-      for (int j = 0; j < CC / 8; ++j)
-        reinterpret_cast<uint4*>(buf + px * XP)[j] = reinterpret_cast<const uint4*>(row)[j];
-    }
-  }
-}
-
-// One implicit-GEMM stage on the tensor cores: for every chunk of BN output
-// columns, acc[16*MB rows, BN] = sum over (16-channel chunk, tap) of A * Wt,
-// then epi(first column, acc).  One pipeline step is one channel chunk: its
-// weight tile (and, in stage 1, its input-halo chunk) is loaded into the ring
-// while the step before it is multiplied, nine 16-deep products per step.
-// The warp at (wm, wn) owns m-blocks wm*MW .. wm*MW + MW - 1 (those below MB)
-// and columns wn*BN/2 .. + BN/2 of the chunk.  A is gathered by ldmatrix:
-// a_row[i] is this lane's row of m-block i at tap (0, 0) in a grid PWA wide
-// with row pitch a_pitch (elements).  STAGE1: A is the ring slot's input-halo
-// chunk; otherwise A is a_buf at channel offset cc*CC.  WRES: the weight tile
-// of step s lies at wres + s*WROWS*(BN + 8) already, so only stage 1 loads
-// anything (and stage 2 runs without a barrier).
-template <int MB, int BN, int R, int PWA, bool STAGE1, bool WRES, bool TMA, int NPX,
-          int SLOT, int XBUF, class Epi>
-__device__ __forceinline__ void gemm_stage(const StageIn& in, Ring& ring,
-                                           const int (&a_row)[(MB + WM - 1) / WM],
-                                           const Epi& epi) {
-  constexpr int MW = (MB + WM - 1) / WM;  // m-blocks per warp
-  constexpr int NB = BN / WN / 8;         // n-blocks (8 columns) per warp
-  constexpr int WP = BN + 8;
-  constexpr int BOXES = (BN + 63) / 64;
-  constexpr bool LOADS = STAGE1 || !WRES;
-  static_assert(NB % 2 == 0, "a warp loads B fragments for 16 columns at a time");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / WN, wn = warp % WN;
-  const int Cin = in.Cin, N = in.N;
-  const int chunks = (Cin + CC - 1) / CC;
-  const int total = ((N + BN - 1) / BN) * chunks;  // pipeline steps
-  // This lane's ldmatrix offsets (mma.cuh), in bytes.  In a weight tile: its
-  // row, and per 16 columns its 16-byte piece (by TMA: the box, and the piece
-  // xor row % 8 = lane % 8).  In the A grid, per m-block: its row at tap (0,
-  // 0) and its 8-column half.
-  const int w_lrow = (lane & 7) + 8 * ((lane >> 3) & 1);
-  uint32_t w_col[NB / 2];
-#pragma unroll
-  for (int j2 = 0; j2 < NB / 2; ++j2) {
-    const int col = wn * (BN / 2) + j2 * 16;
-    w_col[j2] = TMA ? 2u * (uint32_t)(col / 64 * WBOX) +
-                          ((uint32_t)((col % 64 / 8) | (lane >> 4)) ^ (lane & 7)) * 16u
-                    : 2u * (uint32_t)(col + 8 * (lane >> 4));
-  }
-  const uint32_t w_off = 2u * (uint32_t)((WRES ? 0 : XBUF) + w_lrow * (TMA ? 64 : WP));
-  uint32_t a_off[MW];
-#pragma unroll
-  for (int i = 0; i < MW; ++i)
-    a_off[i] = 2u * (uint32_t)(a_row[i] * in.a_pitch + 8 * (lane >> 4));
-
-  int in0 = 0, icc = 0;  // the step being loaded
-  auto start_loads = [&](int s) {
-    if constexpr (TMA) {
-      if (threadIdx.x == 0) {  // the copy unit does the rest
-        const int at = (ring.used + s) % R;
-        bf16* slot = ring.base + at * SLOT;
-        const uint32_t bar = smem_addr(&ring.bars[at]);
-        egm::mma::mbarrier_expect(bar, 2 * ((STAGE1 ? NPX * CC : 0) + BOXES * WBOX));
-        if constexpr (STAGE1)
-          egm::mma::tma_load_4d(smem_addr(slot), in.map_x, icc * CC, in.x0 - 2, in.y0 - 2, in.b,
-                                bar);
-#pragma unroll
-        for (int bx = 0; bx < BOXES; ++bx)
-          egm::mma::tma_load_3d(smem_addr(slot + XBUF + bx * WBOX), in.map_w, in0 + bx * 64,
-                                icc * CC, 0, bar);
-      }
-    } else {
-      bf16* slot = ring.base + (s % R) * SLOT;
-      if constexpr (!WRES) load_weights<BN>(slot + XBUF, in.wt, Cin, N, in0, icc, in.vec_w);
-      if constexpr (STAGE1)
-        load_x_chunk<NPX, PWA>(slot, in.xb, in.H, in.W, Cin, in.y0, in.x0, icc, in.vec_x);
-    }
-    if (++icc == chunks) {
-      icc = 0;
-      in0 += BN;
-    }
-  };
-
-  float acc[MW][NB][4];
-#pragma unroll
-  for (int i = 0; i < MW; ++i)
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  if constexpr (TMA) {
-    for (int s = 0; s < R && s < total; ++s) start_loads(s);  // every slot is free
-  } else if constexpr (LOADS) {
-    for (int s = 0; s < R - 1; ++s) {
-      if (s < total) start_loads(s);
-      egm::mma::cp_async_commit();
-    }
-  }
-  int n0 = 0, cc = 0;  // the step being multiplied
-  for (int s = 0; s < total; ++s) {
-    int at = s % R;
-    if constexpr (TMA) {
-      at = (ring.used + s) % R;
-      egm::mma::mbarrier_wait(smem_addr(&ring.bars[at]), ((ring.used + s) / R) & 1);
-    } else if constexpr (LOADS) {
-      egm::mma::cp_async_wait<R - 2>();  // step s has landed
-      __syncthreads();                   // ... for every thread, and step s - 1 is consumed
-      if (s + R - 1 < total) start_loads(s + R - 1);
-      egm::mma::cp_async_commit();
-    }
-    const uint32_t slot = smem_addr(ring.base + at * SLOT);
-    const uint32_t a_addr = STAGE1 ? slot : smem_addr(in.a_buf + cc * CC);
-    const uint32_t w_addr = (WRES ? smem_addr(in.wres + s * (WROWS * WP)) : slot) + w_off;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      uint32_t bw[NB / 2][4], af[MW][4];
-#pragma unroll
-      for (int j2 = 0; j2 < NB / 2; ++j2)
-        egm::mma::ldmatrix_x4_trans(
-            bw[j2], w_addr + 2u * (uint32_t)(tap * CC * (TMA ? 64 : WP)) + w_col[j2]);
-      const int tap_row = (tap / 3) * PWA + tap % 3;  // rows between tap (0, 0) and this tap
-#pragma unroll
-      for (int i = 0; i < MW; ++i) {
-        if (wm * MW + i >= MB) continue;  // uniform in the warp
-        if constexpr (STAGE1 && TMA) {
-          // dense 32-byte rows: the 16-byte half is xored with bit 2 of the row
-          const uint32_t px = (uint32_t)(a_row[i] + tap_row);
-          egm::mma::ldmatrix_x4(af[i], a_addr + px * 32u + ((((px >> 2) ^ (lane >> 4)) & 1u) << 4));
-        } else {
-          egm::mma::ldmatrix_x4(af[i], a_addr + 2u * (uint32_t)(tap_row * in.a_pitch) + a_off[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MW; ++i) {
-        if (wm * MW + i >= MB) continue;
-#pragma unroll
-        for (int j2 = 0; j2 < NB / 2; ++j2) {
-          egm::mma::mma_bf16(acc[i][2 * j2], af[i], bw[j2][0], bw[j2][1]);
-          egm::mma::mma_bf16(acc[i][2 * j2 + 1], af[i], bw[j2][2], bw[j2][3]);
-        }
-      }
-    }
-    if (++cc == chunks) {
-      epi(n0 + wn * (BN / 2), acc);
-#pragma unroll
-      for (int i = 0; i < MW; ++i)
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      cc = 0;
-      n0 += BN;
-    }
-    if constexpr (TMA) {
-      __syncthreads();  // the slot is consumed: refill it
-      if (s + R < total) start_loads(s + R);
-    }
-  }
-  if constexpr (TMA) {
-    ring.used += total;
-  } else {
-    egm::mma::cp_async_wait<0>();
-    __syncthreads();  // the ring is free, the epilogues' shared-memory stores visible
-  }
-}
 
 // One block walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ... of the
 // tiles_x * tiles_y * B tiles (x fastest, so blocks that run together share
@@ -596,6 +346,7 @@ pair_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                 const __grid_constant__ CUtensorMap map_w1,
                 const __grid_constant__ CUtensorMap map_w2) {
   using L = Layout<TH, TW, BN1, BN2, WRES, TMA>;
+  constexpr int WN = 2, WM = 8 / WN;  // warps along N and along M
   constexpr int PW = L::PW, P1 = L::P1, P2 = L::P2, PWX = L::PWX;
   constexpr int MB1 = (P1 + 15) / 16, MB2 = (P2 + 15) / 16;
   constexpr int MW1 = (MB1 + WM - 1) / WM, MW2 = (MB2 + WM - 1) / WM;
@@ -626,10 +377,10 @@ pair_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     bf16* dst = w1res;
     for (int n0 = 0; n0 < Cm; n0 += BN1)
       for (int cc = 0; cc * CC < C; ++cc, dst += WROWS * (BN1 + 8))
-        load_weights<BN1>(dst, w1, C, Cm, n0, cc, fl.vec_w1);
+        load_weights<BN1>(dst, w1, C, Cm, n0, cc * CC, C - cc * CC, fl.vec_w1);
     for (int n0 = 0; n0 < Co; n0 += BN2)
       for (int cc = 0; cc * CC < Cm; ++cc, dst += WROWS * (BN2 + 8))
-        load_weights<BN2>(dst, w2, Cm, Co, n0, cc, fl.vec_w2);
+        load_weights<BN2>(dst, w2, Cm, Co, n0, cc * CC, Cm - cc * CC, fl.vec_w2);
     egm::mma::cp_async_commit();
   }
 
@@ -668,10 +419,9 @@ pair_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
             }
           }
       };
-      const StageIn in{nullptr, XP, w1,       C,  Cm, (bool)fl.vec_w1, w1res, &map_w1,
-                       xb,      H,  W,        y0, x0, b,               (bool)fl.vec_x, &map_x};
-      gemm_stage<MB1, BN1, L::R, PWX, true, WRES, TMA, L::NPX, L::SLOT, L::XBUF>(in, ring, a_row,
-                                                                                 epi);
+      const StageIn in{w1, C, Cm, 0, Cm, (bool)fl.vec_w1, w1res, &map_w1};
+      const SrcHalo<L::NPX, PWX, TMA> src{xb, H, W, C, y0 - 2, x0 - 2, b, (bool)fl.vec_x, &map_x};
+      gemm_stage<MB1, BN1, WN, L::R, WRES, TMA, L::SLOT, L::XBUF>(in, src, ring, a_row, epi);
     }
 
     // stage 2: out = relu(conv2(mid) + b2) on the tile's pixels inside the image
@@ -710,9 +460,9 @@ pair_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
             }
           }
       };
-      const StageIn in{mid,     MP, w2,       Cm, Co, (bool)fl.vec_w2, w2res, &map_w2,
-                       nullptr, H,  W,        y0, x0, b,               false,          nullptr};
-      gemm_stage<MB2, BN2, L::R, PW, false, WRES, TMA, 0, L::SLOT, L::XBUF>(in, ring, a_row, epi);
+      const StageIn in{w2, Cm, Co, 0, Co, (bool)fl.vec_w2, w2res, &map_w2};
+      const SrcBuf<PW> src{mid, MP, Cm};
+      gemm_stage<MB2, BN2, WN, L::R, WRES, TMA, L::SLOT, L::XBUF>(in, src, ring, a_row, epi);
     }
   }
 }
@@ -724,43 +474,20 @@ int launch(const void* x, const void* w1, const float* b1, const void* w2, const
   using L = Layout<TH, TW, BN1, BN2, WRES, TMA>;
   const size_t smem = L::bytes(C, Cm, Co);
   auto kernel = pair_mma_kernel<TH, TW, BN1, BN2, WRES, TMA>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = opt_in_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
   const long long tiles = (long long)tiles_x * tiles_y * B;
   if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
   long long blocks = tiles;
   if (WRES) {  // as many blocks as run at once
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
+    err = persistent_blocks(kernel, smem, tiles, &blocks);
     if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidValue;
-    blocks = tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm;
   }
   CUtensorMap maps[3] = {};  // x [B][H][W][C]; w1 [9][C][Cm]; w2 [9][Cm][Co]
-  if (TMA) {
-    const cuuint64_t xd[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-    const cuuint64_t xs[3] = {2ull * C, 2ull * C * W, 2ull * C * W * H};
-    const cuuint32_t xbox[4] = {CC, TW + 4, TH + 4, 1};
-    bool ok = egm::mma::make_tensor_map(&maps[0], x, 4, xd, xs, xbox, CU_TENSOR_MAP_SWIZZLE_32B);
-    const void* w[2] = {w1, w2};
-    const int cin[2] = {C, Cm}, n[2] = {Cm, Co};
-    for (int i = 0; i < 2 && ok; ++i) {
-      const cuuint64_t wd[3] = {(cuuint64_t)n[i], (cuuint64_t)cin[i], 9};
-      const cuuint64_t ws[2] = {2ull * n[i], 2ull * n[i] * cin[i]};
-      const cuuint32_t wbox[3] = {64, CC, 9};
-      ok = egm::mma::make_tensor_map(&maps[1 + i], w[i], 3, wd, ws, wbox,
-                                     CU_TENSOR_MAP_SWIZZLE_128B);
-    }
-    if (!ok) return (int)cudaErrorInvalidValue;
-  }
+  if (TMA && !(map_nhwc(&maps[0], x, B, H, W, C, TW + 4, TH + 4) &&
+               map_hwio(&maps[1], w1, C, Cm) && map_hwio(&maps[2], w2, Cm, Co)))
+    return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, NT, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
       static_cast<const bf16*>(w2), b2, static_cast<bf16*>(out), H, W, C, Cm, Co, tiles_x,
@@ -771,9 +498,8 @@ int launch(const void* x, const void* w1, const float* b1, const void* w2, const
 int run(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
         void* out, int B, int H, int W, int C, int Cm, int Co, int th, int tw, int bn1,
         int bn2, int resident, cudaStream_t s) {
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const Flags fl{C % 8 == 0 && aligned(x), Cm % 8 == 0 && aligned(w1),
-                 Co % 8 == 0 && aligned(w2)};
+  const Flags fl{C % 8 == 0 && aligned16(x), Cm % 8 == 0 && aligned16(w1),
+                 Co % 8 == 0 && aligned16(w2)};
   const bool all_vec = fl.vec_x && fl.vec_w1 && fl.vec_w2;
   // the 16x16 tile and the 8x16 tile with 128-column chunks are served by the
   // copy unit alone, so they need everything on the 16-byte grid; the host

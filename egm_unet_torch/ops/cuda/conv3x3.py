@@ -1,12 +1,20 @@
 """3x3 / stride 1 / pad 1 convolution + bias + optional ReLU (kernel K2),
 and the fused pair of two such convolutions (kernel K3).
 
-Replaces ``egm_unet_tpu/ops/pallas/conv3x3.py::conv3x3_gemm``.  The CUDA
-kernel (``csrc/conv3x3.cu``) is an implicit GEMM over M = B*H*W pixels,
-N = Co, K = 9*C with float32 accumulation; zero padding comes from bounds
-checks, so no padded copy is written and any C works.  At the path's widths
-the tensor-core rate bounds the work; K2 multiplies on the CUDA cores in
-float32, which leaves it far from that bound (see PERF.md).
+``conv3x3_gemm`` replaces ``egm_unet_tpu/ops/pallas/conv3x3.py::conv3x3_gemm``
+(``csrc/conv3x3.cu``): an implicit GEMM over M = B*H*W pixels, N = Co,
+K = 9*C with float32 accumulation; zero padding comes from the loads, so no
+padded copy is written and any C works.  ``conv3x3_variant`` names the kernel
+a dtype gets:
+
+- ``"mma_bf16"`` (bfloat16): the tensor-core implicit-GEMM stage of
+  ``csrc/igemm_mma.cuh`` (``mma.sync`` fed by ``ldmatrix`` from bf16 tiles
+  that the TMA unit or ``cp.async`` fills), a block owning a pixel tile and a
+  chunk of output columns; ``conv3x3_tile`` picks the tile: resident weights
+  and persistent blocks at the narrow sites, the TMA unit's tiles at the wide
+  aligned ones, ``cp.async`` / scalar loads otherwise.
+- ``"cuda_cores_f32"`` (float32): the CUDA-core implicit GEMM of
+  ``csrc/common.cuh``, which holds 1e-4 relative.
 
 ``conv3x3_pair_gemm`` replaces
 ``egm_unet_tpu/ops/pallas/conv3x3.py::conv3x3_pair_gemm``: the folded
@@ -15,12 +23,10 @@ DoubleConv ``relu(conv2(relu(conv1(x) + b1)) + b2)`` in one launch
 Co; conv1's output on the tile and a one-pixel halo stays in shared memory in
 the working dtype, zeroed where the halo lies outside the image (conv2's zero
 padding), and never reaches device memory.  ``pair_variant`` names the kernel
-a dtype gets: bfloat16 multiplies both GEMMs on the tensor cores (``mma.sync``
-fed by ``ldmatrix`` from bf16 shared-memory tiles that the TMA unit or
-``cp.async`` fills);
-float32 stays on the CUDA cores, which hold 1e-4 relative.  ``pair_tile``
-picks the tile by Cm and dtype so that the intermediate and the variant's
-staging buffers fit the 227 KB a block may use.
+a dtype gets: bfloat16 multiplies both GEMMs on the tensor cores (the same
+stage as K2); float32 stays on the CUDA cores, which hold 1e-4 relative.
+``pair_tile`` picks the tile by Cm and dtype so that the intermediate and the
+variant's staging buffers fit the 227 KB a block may use.
 
 ``conv3x3_gemm`` and ``conv3x3_pair_gemm`` launch their kernels for CUDA
 tensors and run ``conv3x3_plain`` / ``conv3x3_pair_plain`` for CPU tensors;
@@ -45,7 +51,7 @@ pair_launches = 0  # conv3x3_pair_gemm kernel launches since the last reset
 # csrc/conv3x3_pair.cu: tiles (TH, TW) in order of preference and the shared
 # memory a block may opt into on sm_90.  The tensor-core kernel keeps a ring
 # of slots, each 16 channels (PAIR_CC) of the input halo and the nine taps'
-# weight tile for them, PAIR_RING[wider column chunk] deep.  Where all weight
+# weight tile for them, ``ring_depth(wider column chunk)`` deep.  Where all weight
 # tiles fit beside the intermediate and a ring of two input-halo chunks in
 # half an SM's shared memory (PAIR_RESIDENT_LIMIT), they stay resident, a
 # block walks many 8x16 tiles, and the column chunks (BN1, BN2) are the
@@ -58,8 +64,16 @@ PAIR_TMA_TILES = ((16, 16), (8, 16))  # without resident weights: filled by the 
 PAIR_SMEM_LIMIT = 232448
 PAIR_RESIDENT_LIMIT = 233472 // 2 - 1024  # two blocks per SM, 1 KB reserved each
 PAIR_CC = 16
-PAIR_RING = {32: 4, 64: 3, 128: 2}
 PAIR_RESIDENT_CHUNKS = ((32, 32), (64, 32), (64, 64))
+
+# csrc/conv3x3.cu (K2), bfloat16: how a tile's ring is filled (the C entry
+# point's mode codes); the column chunks whose weights may stay resident (16
+# and 32 narrow enough for Co = 8 .. 32 without padding to 64); and the TMA
+# unit's tiles (TH, TW, BN, mode), the first whose BN covers Co, 128-column
+# chunks above 64.
+CONV_MODES = {"async": 0, "resident": 1, "tma": 2, "cuda_cores": -1}
+CONV_RESIDENT_CHUNKS = (16, 32, 64)
+CONV_TMA_TILES = ((8, 16, 32, "tma"), (16, 16, 64, "tma"), (8, 16, 128, "tma"))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -103,13 +117,18 @@ def conv3x3_gemm(x: torch.Tensor, w: torch.Tensor,
     wq = w.to(x.dtype).contiguous()
     bq = None if b is None else b.float().contiguous()
     out = torch.empty((bsz, h, wd, co), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    th, tw, bn, mode = conv3x3_tile(
+        c, co, x.element_size(),
+        aligned=all(t.data_ptr() % 16 == 0 for t in (x, wq)))
     lib = build.load("conv3x3")
     fn = lib.egm_conv3x3
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P] * 4 + [_I] * 11 + [_P]
     fn.restype = _I
     err = fn(x.data_ptr(), wq.data_ptr(), None if bq is None else bq.data_ptr(),
-             out.data_ptr(), bsz, h, wd, c, co, int(relu), DTYPE_CODES[x.dtype],
-             stream_handle(x.device))
+             out.data_ptr(), bsz, h, wd, c, co, int(relu), th, tw, bn,
+             CONV_MODES[mode], DTYPE_CODES[x.dtype], stream_handle(x.device))
     build.check_launch(err, "conv3x3_gemm")
     launches += 1
     return out
@@ -119,36 +138,125 @@ def _up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def pair_variant(dtype: torch.dtype) -> str:
-    """The kernel ``conv3x3_pair_gemm`` launches for CUDA tensors of
-    ``dtype``: ``"mma_bf16"`` (tensor cores) or ``"cuda_cores_f32"``."""
+def conv3x3_variant(dtype: torch.dtype) -> str:
+    """The kernel ``conv3x3_gemm`` launches for CUDA tensors of ``dtype``:
+    ``"mma_bf16"`` (tensor cores) or ``"cuda_cores_f32"``."""
     if dtype not in DTYPE_CODES:
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
     return "mma_bf16" if dtype == torch.bfloat16 else "cuda_cores_f32"
 
 
+def cuda_core_tile(co: int) -> tuple:
+    """The float32 CUDA-core kernel's tile (``common.cuh::launch_igemm3x3``,
+    shared by K2 and K5): ``(1, BM, BN, "cuda_cores")``, a run of BM pixels by
+    BN output columns, picked by Co."""
+    bm, bn = (128, 16) if co <= 16 else (128, 32) if co <= 32 else (64, 64)
+    return (1, bm, bn, "cuda_cores")
+
+
+def ring_depth(bn: int) -> int:
+    """Slots of the tensor-core stage's ring for BN-column chunks
+    (``csrc/igemm_mma.cuh::ring_depth``)."""
+    return 4 if bn <= 32 else 3 if bn <= 64 else 2
+
+
+def ring_slot(th: int, tw: int, bn: int, mode: str) -> tuple:
+    """``(elements of a ring slot's halo chunk, of its weight tile, ring
+    depth)`` of the tensor-core stage (``csrc/igemm_mma.cuh::Slots``) for a
+    TH x TW pixel tile with BN-column chunks: by the TMA unit dense swizzled
+    tiles, the chunk in 512-element units, the weights one [9*16, 64] box per
+    64 columns; pitched tiles otherwise; with resident weights the slots hold
+    the halo chunk only, two deep."""
+    halo = (th + 2) * (tw + 2)
+    if mode == "tma":
+        return _up(halo * PAIR_CC, 512), -(-bn // 64) * 9 * PAIR_CC * 64, ring_depth(bn)
+    xbuf = halo * (PAIR_CC + 8)
+    if mode == "resident":
+        return xbuf, 0, 2
+    return xbuf, 9 * PAIR_CC * (bn + 8), ring_depth(bn)
+
+
+def resident_weights(chunks: int, co: int, bn: int) -> int:
+    """Elements of the resident weight tiles: ``chunks`` 16-channel steps x
+    the BN-column chunks of Co, each a padded [9*16, BN + 8] tile."""
+    return -(-co // bn) * chunks * 9 * PAIR_CC * (bn + 8)
+
+
+def conv3x3_smem_bytes(tile: tuple, c: int, co: int, itemsize: int) -> int:
+    """Shared memory of one block of K2 at ``tile`` = (TH, TW, BN, mode), as
+    ``csrc/conv3x3.cu`` lays it out (float32: the CUDA-core kernel's static
+    staging of one K chunk of 16)."""
+    th, tw, bn, mode = tile
+    if itemsize == 4:
+        return 4 * 16 * (tw + 4 + bn)
+    xbuf, wtile, ring = ring_slot(th, tw, bn, mode)
+    n = ring * (xbuf + wtile)
+    if mode == "resident":
+        n += resident_weights(-(-c // PAIR_CC), co, bn)
+    return 2 * n + (1024 if mode == "tma" else 0)
+
+
+def conv3x3_tile(c: int, co: int, itemsize: int, aligned: bool = True) -> tuple:
+    """``(TH, TW, BN, mode)`` of K2 for the widths C -> Co: the pixel tile,
+    the column chunk and how the ring is filled.  bfloat16 (tensor cores):
+    8x16 with all weights resident in shared memory (``"resident"``) where
+    they fit ``PAIR_RESIDENT_LIMIT`` in the narrowest chunk of
+    ``CONV_RESIDENT_CHUNKS`` that covers Co; else the TMA unit's tiles
+    (``"tma"``; they need C and Co multiples of 8 and x, w on 16-byte
+    boundaries, ``aligned``): 8x16 with 32 columns where Co <= 32, 16x16 with
+    64 where Co <= 64, else 8x16 with 128, the chunks of Co on the grid; else
+    8x16 with 64 columns by ``cp.async`` or scalar loads (``"async"``).
+    float32: ``cuda_core_tile``."""
+    if itemsize == 4:
+        return cuda_core_tile(co)
+    for bn in CONV_RESIDENT_CHUNKS:
+        if co <= bn:
+            tile = (8, 16, bn, "resident")
+            if conv3x3_smem_bytes(tile, c, co, itemsize) <= PAIR_RESIDENT_LIMIT:
+                return tile
+            break
+    if aligned and c % 8 == 0 and co % 8 == 0:
+        return next(t for t in CONV_TMA_TILES if co <= t[2] or t[2] == 128)
+    return (8, 16, 64, "async")
+
+
+def conv3x3_flops(shape, co: int, itemsize: int) -> tuple:
+    """``(needed, executed)`` FLOPs of one K2 call on ``shape`` = (B, H, W,
+    C): what the function needs, and what the kernel runs with its tiles
+    padded out: whole pixel tiles, N to the column chunk and each tap's
+    channels to 16 on the tensor cores; M to BM, N to BN and K = 9*C to 16
+    on the CUDA cores."""
+    b, h, w, c = shape
+    needed = 2.0 * b * h * w * 9 * c * co
+    th, tw, bn, _ = conv3x3_tile(c, co, itemsize)
+    if itemsize == 4:
+        return needed, 2.0 * _up(b * h * w, tw) * _up(co, bn) * _up(9 * c, 16)
+    tiles = b * -(-h // th) * -(-w // tw)
+    return needed, 2.0 * tiles * th * tw * _up(co, bn) * 9 * _up(c, 16)
+
+
+def pair_variant(dtype: torch.dtype) -> str:
+    """The kernel ``conv3x3_pair_gemm`` launches for CUDA tensors of
+    ``dtype``: ``"mma_bf16"`` (tensor cores) or ``"cuda_cores_f32"``."""
+    return conv3x3_variant(dtype)
+
+
 def pair_smem_bytes(tile: tuple, c: int, cm: int, co: int, itemsize: int) -> int:
     """Dynamic shared memory of one block of the pair kernel at ``tile`` =
-    (TH, TW, BN1, BN2, resident), as ``csrc/conv3x3_pair.cu`` lays it out."""
+    (TH, TW, BN1, BN2, resident), as ``csrc/conv3x3_pair.cu`` lays it out:
+    the intermediate, then the ring of stage 1's (TH+2) x (TW+2) positions
+    (``ring_slot``) for the wider column chunk, then any resident weights."""
     th, tw, bn1, bn2, resident = tile
     halo = (th + 2) * (tw + 2)
     if itemsize == 4:  # float32 staging of one K chunk + the intermediate
         return 4 * 16 * (64 + 4 + bn1) + halo * cm * 4
-    mid = halo * (_up(cm, 16) + 8)  # pitch off the 128-byte grid, pad channels zero
-    xbuf = (th + 4) * (tw + 4) * (PAIR_CC + 8)
-    weights = lambda cin, n, bn: (-(-n // bn) * -(-cin // PAIR_CC)
-                                  * 9 * PAIR_CC * (bn + 8))
+    mode = "resident" if resident else "tma" if (th, tw) in PAIR_TMA_TILES else "async"
+    xbuf, wtile, ring = ring_slot(th + 2, tw + 2, max(bn1, bn2), mode)
+    n = halo * (_up(cm, 16) + 8) + ring * (xbuf + wtile)  # mid pitch off the 128-byte grid
     if resident:
-        return 2 * (mid + 2 * xbuf + weights(c, cm, bn1) + weights(cm, co, bn2))
-    ring = PAIR_RING[max(bn1, bn2)]
-    if (th, tw) in PAIR_TMA_TILES:
-        # dense swizzled tiles on 1024-byte boundaries: the input-halo chunk,
-        # and one [9*16, 64] box per 64 weight columns
-        slot = _up((th + 4) * (tw + 4) * PAIR_CC, 512) \
-            + -(-max(bn1, bn2) // 64) * 9 * PAIR_CC * 64
-        return 2 * (mid + ring * slot) + 1024
-    slot = xbuf + 9 * PAIR_CC * (max(bn1, bn2) + 8)
-    return 2 * (mid + ring * slot)
+        n += resident_weights(-(-c // PAIR_CC), cm, bn1) \
+            + resident_weights(-(-cm // PAIR_CC), co, bn2)
+    return 2 * n + (1024 if mode == "tma" else 0)
 
 
 def pair_tile(c: int, cm: int, co: int, itemsize: int, aligned: bool = True) -> tuple:

@@ -21,10 +21,15 @@ every route and for a small CLIPSeg.
 ``conv3x3_gemm``, ``conv3x3_pair_gemm``, ``up_concat_conv`` and
 ``csa_attention`` have two hand-written kernels each, chosen by dtype:
 bfloat16 multiplies on the tensor cores (``mma_bf16``), float32 on the CUDA
-cores (``cuda_cores_f32``).  Their ``kernel`` records carry the wrapper's
-choice as ``variant`` (and the three convolutions' their ``tile`` and
-executed FLOPs), and the run fails if a bfloat16 record is not ``mma_bf16``
-or a float32 one not ``cuda_cores_f32``.  ``csa_attention``'s path record is taken as the
+cores (``cuda_cores_f32``).  ``mca_fused`` and ``upsample2x_fused`` have a
+kernel that stages 16-byte tiles (``tile_tma`` by the TMA unit,
+``band_cp_async`` by cp.async) and a scalar one for shapes and pointers off
+the 16-byte grid.  Every ``kernel`` record carries the wrapper's choice as
+``variant`` (and the three convolutions' their ``tile`` and executed FLOPs),
+and the run fails if a path record names another kernel than its dtype's
+tensor-core or CUDA-core one, or, for K1 and K4, than the 16-byte one.
+Kernel records time one call twice: ``kernel_ms`` with the wrapper's host
+work and ``device_ms`` with it hidden behind a device-side sleep.  ``csa_attention``'s path record is taken as the
 transformer blocks give it, on the three ``chunk`` views of one fused
 ``in_proj`` output (``layout: in_proj_views``); a record on contiguous tensors
 stands beside it.
@@ -119,6 +124,7 @@ SOT, EOT = 49406, 49407
 # tensor-core and float32 CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SLEEP_CYCLES = 400_000  # about 0.2 ms at the H100's clocks: longer than a wrapper's host work
 
 
 def emit(obj) -> None:
@@ -147,6 +153,40 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def aligned16(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+# the kernel each path record must name: by dtype for the four tensor-core
+# kernels, the 16-byte kernel in both dtypes for K1 and K4
+PATH_VARIANTS = {"mca_fused": {"bfloat16": "tile_tma", "float32": "tile_tma"},
+                 "upsample2x_fused": {"bfloat16": "band_cp_async",
+                                      "float32": "band_cp_async"}}
+for _name in ("conv3x3_gemm", "conv3x3_pair_gemm", "up_concat_conv", "csa_attention"):
+    PATH_VARIANTS[_name] = {"bfloat16": "mma_bf16", "float32": "cuda_cores_f32"}
+
+
+def device_time_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Median CUDA-event time of one call with the host's work hidden: a
+    device-side sleep queued before the start event outlasts the wrapper's
+    host work, so the events bracket only the device's.  ``time_ms`` counts
+    both, as a caller with an idle card sees them."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -262,7 +302,9 @@ def pair_site_calls(mod, args, kwargs, cast) -> list:
         calls.append(("upsample2x_fused", ("up2x", tuple(x1.shape), str(x1.dtype)),
                       lambda: resize2x.upsample2x_fused(x1),
                       lambda: resize2x.upsample2x_plain(x1), up_library,
-                      nbytes(x1, up), 9.0 * up.numel(), x1.dtype))
+                      nbytes(x1, up), 9.0 * up.numel(), x1.dtype,
+                      {"variant": resize2x.upsample_variant(x1.dtype, x1.shape[-1],
+                                                            aligned16(x1))}))
         x = torch.cat([x2, up], dim=-1)
     else:
         x = cast(args[0].contiguous())
@@ -310,7 +352,8 @@ def site_call(site, cast):
             g = [mod.h_cw(x), mod.w_hc(x), mod.c_hw(x)]
         return ("mca_fused", ("mca", tuple(x.shape), str(x.dtype)),
                 lambda: mca.mca_fused(x, *g), lambda: mca.mca_plain(x, *g), None,
-                2 * nbytes(x) + nbytes(*g), 40.0 * x.numel(), x.dtype)
+                2 * nbytes(x) + nbytes(*g), 40.0 * x.numel(), x.dtype,
+                {"variant": mca.mca_variant(x.dtype, x.shape[-1], 4, aligned16(x))})
     conv = mod.Conv_0
     k, b = cast(conv.kernel), conv.bias.float()
     up_pair = kwargs.get("up_pair")
@@ -405,7 +448,8 @@ def kernel_record(site: str, call, reps: int, **extra) -> dict:
          "dtype": str(dtype).split(".")[1],
          "shape": [list(s) if isinstance(s, tuple) else s for s in key[1:-1]],
          "max_abs_err": err, "tol": tol, "out_max_abs": scale,
-         "kernel_ms": time_ms(kfn, reps=reps), "plain_ms": time_ms(pfn, reps=reps // 2),
+         "kernel_ms": time_ms(kfn, reps=reps), "device_ms": device_time_ms(kfn, reps=reps),
+         "plain_ms": time_ms(pfn, reps=reps // 2),
          "library_ms": None if lfn is None else time_ms(lfn, reps=reps),
          "bound_ms": t_bound, "bound_by": by, "bytes": nb, "flops": flops}
     emit(r)
@@ -457,11 +501,9 @@ def phase_kernels(pred, pair_pred, images) -> list:
     records.append(kernel_record(site, csa_call(CSA_PATH_SHAPE, torch.float32, views=True), 5))
     torch.cuda.empty_cache()
     for r in records:
-        if r["name"] in ("conv3x3_gemm", "conv3x3_pair_gemm", "up_concat_conv",
-                         "csa_attention"):
-            want = "mma_bf16" if r["dtype"] == "bfloat16" else "cuda_cores_f32"
-            check(r.get("variant") == want,
-                  f"{r['name']} {r['dtype']} at {r['site']}: variant {r.get('variant')}")
+        want = PATH_VARIANTS[r["name"]][r["dtype"]]
+        check(r.get("variant") == want,
+              f"{r['name']} {r['dtype']} at {r['site']}: variant {r.get('variant')}")
     with open(OUT_DIR / "chip_smoke_kernels.jsonl", "w") as f:
         for r in records:
             f.write(json.dumps(r) + "\n")
@@ -476,11 +518,15 @@ def phase_edges() -> None:
     strided views on and off the 16-byte grid; for
     the pair kernel, maps smaller than a tile (down to 1x1), Cm != Co, and
     mid widths that force each smaller tile (400 and 800: 8x8 in float32 and
-    bfloat16; 1300: 4x4; 3000: 2x2 in float32); for the upsample, odd sizes,
-    H = 1, C = 3 and a pointer off the 16-byte grid (the scalar kernel)."""
+    bfloat16; 1300: 4x4; 3000: 2x2 in float32); for K1 and K4, both of
+    their kernels (the 16-byte one and the scalar one, at least three cases
+    each per dtype): K1 with C on and off the 32-grid and the 8-grid, groups
+    1, 2 and 8, ragged tiles, h = 1, w = 1 and x off the 16-byte grid; K4
+    with h = 1, w = 1, ragged bands, each C of the path, C = 3, 6 and 300
+    and x off the 16-byte grid."""
     gen = torch.Generator().manual_seed(SEED)
     rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).cuda()
-    worst = {}
+    worst, variants = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         cases = []
         # K2: every tile conv3x3_tile picks (resident 16 / 32 / 64 columns;
@@ -503,11 +549,21 @@ def phase_edges() -> None:
         x = rnd(x.numel() + 1).to(dtype)[1:].view(x.shape)  # off the 16-byte grid
         cases.append(("conv3x3_gemm", lambda x=x, w=w: conv3x3.conv3x3_gemm(x, w, relu=True),
                       lambda x=x, w=w: conv3x3.conv3x3_plain(x, w, relu=True)))
-        for b_, h, w_, c in ((2, 9, 13, 20), (1, 5, 17, 36)):
+        # K1: C on the 32-grid (the TMA tiles; ragged 16 x 14 tiles, two
+        # rows of tiles, a map smaller than a tile, h = 1, w = 1); off it on
+        # and off the 8-grid, groups 1, 2 and 8, x off the 16-byte grid (the
+        # scalar tiles)
+        k1 = [(2, 9, 13, 20, 4), (1, 5, 17, 36, 4), (2, 9, 13, 32, 4), (1, 21, 35, 64, 4),
+              (1, 3, 2, 96, 4), (2, 1, 19, 32, 4), (1, 17, 1, 64, 4), (1, 6, 5, 24, 4),
+              (1, 7, 9, 3, 1), (1, 7, 9, 64, 2), (1, 18, 9, 64, 8), (1, 37, 17, 32, 4)]
+        for i, (b_, h, w_, c, groups) in enumerate(k1 + [(1, 9, 11, 64, 4)]):
             x = rnd(b_, h, w_, c).to(dtype)
+            if i == len(k1):  # off the 16-byte grid
+                x = rnd(x.numel() + 1).to(dtype)[1:].view(x.shape)
             g = [torch.rand(b_, n, generator=gen).cuda() for n in (h, w_, c)]
-            cases.append(("mca_fused", lambda x=x, g=g: mca.mca_fused(x, *g),
-                          lambda x=x, g=g: mca.mca_plain(x, *g)))
+            cases.append(("mca_fused", lambda x=x, g=g, n=groups: mca.mca_fused(x, *g, n),
+                          lambda x=x, g=g, n=groups: mca.mca_plain(x, *g, n),
+                          mca.mca_variant(dtype, c, groups, aligned16(x))))
         # K5: every tile upconv_tile picks (resident 16 / 32 / 64; the TMA
         # unit's 64 and 128 columns; cp.async 64 and 128), C2 != C1, C2 % 16
         # != 0 (on and off the 8-grid), h = 1, w = 1, Co above the widest chunk
@@ -547,12 +603,18 @@ def phase_edges() -> None:
         cases.append(("conv3x3_pair_gemm",
                       lambda a=(x, w1, b1, w2, b2): conv3x3.conv3x3_pair_gemm(*a),
                       lambda a=(x, w1, b1, w2, b2): conv3x3.conv3x3_pair_plain(*a)))
-        ups = [rnd(*shape).to(dtype) for shape in ((2, 5, 7, 3), (1, 1, 4, 8),
-                                                   (2, 9, 13, 16), (1, 3, 1, 40))]
+        # K4: C = 3 and 300 (scalar), h = 1, w = 1, ragged bands (2h % 16 !=
+        # 0), each C of the path (256 / 128 / 64 / 32) on small maps, x off the
+        # 16-byte grid (scalar)
+        ups = [rnd(*shape).to(dtype) for shape in (
+            (2, 5, 7, 3), (1, 1, 4, 8), (2, 9, 13, 16), (1, 3, 1, 40), (1, 1, 9, 32),
+            (1, 7, 1, 64), (1, 23, 5, 8), (1, 3, 5, 256), (1, 4, 6, 128), (2, 5, 7, 64),
+            (1, 9, 11, 32), (1, 3, 4, 300), (1, 5, 3, 6))]
         ups.append(rnd(2 * 6 * 5 * 16 + 1).to(dtype)[1:].view(2, 6, 5, 16))  # unaligned
         for x in ups:
             cases.append(("upsample2x_fused", lambda x=x: resize2x.upsample2x_fused(x),
-                          lambda x=x: resize2x.upsample2x_plain(x)))
+                          lambda x=x: resize2x.upsample2x_plain(x),
+                          resize2x.upsample_variant(dtype, x.shape[-1], aligned16(x))))
         for shape in ((2, 10, 32, 4), (1, 64, 64, 1), (1, 17, 64, 2),
                       (3, 197, 768, 12), (2, 70, 200, 2)):  # head widths 8..100
             call = csa_call(shape, dtype, seed=SEED + 1)
@@ -563,12 +625,23 @@ def phase_edges() -> None:
                       (2, 5, 64, 1), (1, 64, 128, 2), (1, 65, 128, 2)):
             call = csa_call(shape, dtype, seed=SEED + 2, views=True)
             cases.append((call[0], call[2], call[3]))
-        for name, kfn, pfn in cases:
+        for name, kfn, pfn, *variant in cases:
             err, tol, _ = compare(kfn, pfn, dtype)
             check(err <= tol, f"{name} {dtype} edge case: max abs err {err} > tol {tol}")
             key = f"{name}/{str(dtype).split('.')[1]}"
             worst[key] = max(worst.get(key, 0.0), err / tol)
-    emit({"phase": "edge_shapes", "cases": 2 * len(cases), "worst_err_over_tol": worst})
+            if variant:
+                vkey = f"{key}/{variant[0]}"
+                variants[vkey] = variants.get(vkey, 0) + 1
+    # each K1 and K4 kernel took edge cases in both dtypes
+    for name, kinds in (("mca_fused", ("tile_tma", "tile_scalar")),
+                        ("upsample2x_fused", ("band_cp_async", "band_scalar"))):
+        for dt in ("float32", "bfloat16"):
+            for kind in kinds:
+                check(variants.get(f"{name}/{dt}/{kind}", 0) >= 3,
+                      f"edge cases of {name} {dt} took {kind} fewer than 3 times: {variants}")
+    emit({"phase": "edge_shapes", "cases": 2 * len(cases), "worst_err_over_tol": worst,
+          "variants": variants})
 
 
 def phase_serving(pred, dev) -> dict:
@@ -611,7 +684,7 @@ def phase_serving(pred, dev) -> dict:
     phase_profile("profile", lambda: pred.forward(x), "serving_profile.txt",
                   {"conv3x3_gemm": "conv3x3_mma_kernel",
                    "up_concat_conv": "upconv_mma_kernel",
-                   "mca_fused": "mca_fused_kernel"})
+                   "mca_fused": "mca_tile_kernel"})
     return rec
 
 
@@ -732,8 +805,8 @@ def phase_serve(httpd, batcher, pred, dev) -> dict:
     emit(rec)
     phase_profile("serve_profile", lambda: pair_pred.forward(x), "serve_profile.txt",
                   {"conv3x3_pair_gemm": "pair_mma_kernel",
-                   "upsample2x_fused": "upsample2x_kernel",
-                   "conv3x3_gemm": "conv3x3_mma_kernel", "mca_fused": "mca_fused_kernel"})
+                   "upsample2x_fused": "upsample2x_band_kernel",
+                   "conv3x3_gemm": "conv3x3_mma_kernel", "mca_fused": "mca_tile_kernel"})
     return rec
 
 
@@ -779,7 +852,8 @@ def phase_predict_cli(dev) -> dict:
 def phase_profile(phase: str, forward, out_name: str, patterns: dict) -> dict:
     """Device time of one call of ``forward`` by kernel, from torch.profiler;
     ``patterns`` names the kernels whose time and launches are summed by
-    substring."""
+    substring.  A pattern that matches no launch fails the run, so that a
+    renamed kernel cannot drop out of the sums unseen."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -800,6 +874,8 @@ def phase_profile(phase: str, forward, out_name: str, patterns: dict) -> dict:
     by_kernel = {name: sum(r[0] for r in rows if pat in r[2])
                  for name, pat in patterns.items()}
     calls = {name: sum(r[1] for r in rows if pat in r[2]) for name, pat in patterns.items()}
+    missing = [f"{name} ({pat})" for name, pat in patterns.items() if not calls[name]]
+    check(not missing, f"{phase}: no launch matched {missing}")
     (OUT_DIR / out_name).write_text(
         f"wall {wall_ms:.3f} ms, device {device_ms:.3f} ms\n"
         + "\n".join(f"{ms:10.3f} ms {n:5d}x  {k}" for ms, n, k in rows) + "\n")
@@ -983,9 +1059,10 @@ def card_vs_cpu_record(name, shape, gpu, cpu, launches, masks: bool, **extra) ->
 
 def summary(records, main_paths: dict) -> list:
     """Per kernel: times summed over one forward's launches at the path shape
-    (each shape's time times its sites per forward); launches from the
-    main-path runs ``main_paths`` (phase -> its launch counts), whose counts
-    were reset just before each."""
+    (each shape's time times its sites per forward): ``ms`` with the host's
+    launch work (``time_ms``), ``device_ms`` without it (``device_time_ms``);
+    launches from the main-path runs ``main_paths`` (phase -> its launch
+    counts), whose counts were reset just before each."""
     fwd = f"batch {BATCH}, {BUCKET[0]}x{BUCKET[1]}, bf16"
     per = {name: f"one EGM-UNet forward, {fwd}" for name in SOURCES}
     for name in ("conv3x3_pair_gemm", "upsample2x_fused"):
@@ -1006,7 +1083,8 @@ def summary(records, main_paths: dict) -> list:
             "replaces": REPLACES[name], "launches": launches,
             **{f"launches_{phase}": counts[name] for phase, counts in main_paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": per_fwd("kernel_ms"), "plain_ms": per_fwd("plain_ms"),
+            "ms": per_fwd("kernel_ms"), "device_ms": per_fwd("device_ms"),
+            "plain_ms": per_fwd("plain_ms"),
             "bound_ms": per_fwd("bound_ms"),
             "bound_by": "bytes" if t_bytes >= per_fwd("bound_ms") / 2 else "operations",
             "library_ms": None if path[0]["library_ms"] is None else per_fwd("library_ms"),

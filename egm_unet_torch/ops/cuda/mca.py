@@ -8,8 +8,18 @@ gate vectors, one pass computes
           + 0.1 (1.1 x_out) + 0.1 shuffle(x_out)
 
 Device-memory bandwidth bounds it (about 40 flops per element).  The CUDA
-kernel (``csrc/mca_fused.cu``) reads x once into a shared-memory halo tile,
-gated on the way in, and writes the output once.
+kernel (``csrc/mca_fused.cu``) runs persistent blocks over tiles of
+``MCA_TILE`` = 16 x 14 pixels x 32 channels: each tile's 20 x 18 halo and
+its shuffle sources arrive as boxes of the TMA unit, its gates by cp.async,
+while the SM's other two blocks compute; each halo element is gated once in
+shared memory, the window passes walk down columns with their 3x3 windows in
+registers, and the output is written once.  ``mca_variant`` names the kernel
+a call launches: ``"tile_tma"`` (the TMA boxes, the shuffle sources as
+four runs of eight channels) where groups is 4, C % 32 == 0 and x and out
+are 16-byte aligned, else ``"tile_scalar"`` (element loads, the shuffle
+gathered from device memory).  ``mca_tile_origin``, ``mca_shuffle_runs``
+and ``mca_smem_bytes`` repeat the kernel's tile walk, shuffle gather and
+shared-memory layout for the host-side tests.
 
 ``mca_fused`` launches the kernel for CUDA tensors and runs ``mca_plain``
 for CPU tensors.
@@ -28,6 +38,8 @@ from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
 from egm_unet_torch.ops.shuffle import channel_shuffle
 
 launches = 0  # kernel launches since the last reset
+
+MCA_TILE = (16, 14, 32)  # rows, columns, channels of a tile
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,6 +90,62 @@ def mca_plain(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor,
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
+def mca_variant(dtype: torch.dtype, c: int, groups: int = 4,
+                aligned: bool = True) -> str:
+    """The kernel ``mca_fused`` launches for CUDA tensors of ``dtype`` with C
+    channels: ``"tile_tma"`` where ``groups == 4``, ``c % 32 == 0`` and x
+    and out lie on 16-byte boundaries (``aligned``), else ``"tile_scalar"``."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
+    vec = groups == 4 and c % MCA_TILE[2] == 0 and aligned
+    return "tile_tma" if vec else "tile_scalar"
+
+
+def mca_smem_bytes(itemsize: int) -> int:
+    """Shared memory of one block (``csrc/mca_fused.cu::Layout``): the stage
+    (the halo, gated in place, and the four shuffle runs in the working
+    dtype, the float32 gates of 32 channels, 32 run channels, the halo rows
+    and columns, and the tile's origin, four int32), padded to 128 bytes for
+    the TMA unit, then the float32 squared deviations of the (TH+2) x (TW+2)
+    positions; the mbarrier is static (8 bytes).  Three blocks an SM in
+    bfloat16, two in float32."""
+    th, tw, cc = MCA_TILE
+    stage = ((th + 4) * (tw + 4) * cc * itemsize + th * tw * cc * itemsize
+             + 4 * (2 * cc + (th + 4) + (tw + 4)) + 16)
+    stage = -(-stage // 128) * 128
+    return stage + (th + 2) * (tw + 2) * cc * 4
+
+
+def mca_tile_count(shape) -> int:
+    """Tiles of one call on x of ``shape`` = (B, H, W, C)."""
+    b, h, w, c = shape
+    th, tw, cc = MCA_TILE
+    return b * -(-h // th) * -(-w // tw) * -(-c // cc)
+
+
+def mca_tile_origin(t: int, shape) -> tuple:
+    """``(b, y0, x0, c0)`` of tile ``t``, decoded as the kernel decodes it
+    (channel chunk fastest, then columns, rows, images)."""
+    _, h, w, c = shape
+    th, tw, cc = MCA_TILE
+    ncc, ntx, nty = -(-c // cc), -(-w // tw), -(-h // th)
+    c0 = t % ncc * cc
+    t //= ncc
+    x0 = t % ntx * tw
+    t //= ntx
+    return t // nty, t % nty * th, x0, c0
+
+
+def mca_shuffle_runs(c: int, c0: int, groups: int = 4):
+    """The first source channel of each of the four runs of eight that the
+    output channels [c0, c0 + 32) read in the ``tile_tma`` variant
+    (output channel c0 + 4 i + k reads run k's element i); None where that
+    variant does not apply."""
+    if groups != 4 or c % MCA_TILE[2]:
+        return None
+    return [k * (c // 4) + c0 // 4 for k in range(4)]
+
+
 def mca_fused(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor,
               g_c: torch.Tensor, groups: int = 4) -> torch.Tensor:
     """x (B, H, W, C) contiguous, float32 or bfloat16; g_h/g_w/g_c float32
@@ -87,13 +155,18 @@ def mca_fused(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor,
     if x.device.type == "cpu":
         return mca_plain(x, g_h, g_w, g_c, groups)
     b, h, w, c = x.shape
+    if h * w * c >= 2 ** 31:
+        raise ValueError(f"one image of x holds {h * w * c} elements; the kernel "
+                         "indexes an image with 32-bit offsets")
     out = torch.empty_like(x)
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    vec = mca_variant(x.dtype, c, groups, aligned) == "tile_tma"
     lib = build.load("mca_fused")
     fn = lib.egm_mca_fused
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P] + [_I] * 7 + [_P]
     fn.restype = _I
     err = fn(x.data_ptr(), g_h.data_ptr(), g_w.data_ptr(), g_c.data_ptr(),
-             out.data_ptr(), b, h, w, c, groups, DTYPE_CODES[x.dtype],
+             out.data_ptr(), b, h, w, c, groups, int(vec), DTYPE_CODES[x.dtype],
              stream_handle(x.device))
     build.check_launch(err, "mca_fused")
     launches += 1

@@ -13,10 +13,16 @@ shapes the main paths give it, and drives the main paths at full width:
 - serve: the HTTP server of ``cli/serve.py`` on 127.0.0.1 with the same
   EGM-UNet on the pair / fused-upsample route (``conv3x3_pair_gemm`` +
   ``upsample2x_fused``), answering 12 concurrent PNG requests of two sizes;
-- predict_cli: ``cli/predict.py --synthetic --amp`` on that route.
+- predict_cli: ``cli/predict.py --synthetic --amp`` on that route;
+- train (with autograd on, after the serving phases, which run under
+  ``torch.inference_mode()``): egm_unet's BatchNorm graph at batch 8 on
+  480x480 crops, SGD 0.02, in bf16, float32 and bf16 with stage remat,
+  which must launch no hand-written kernel; ``cli/train.py`` for two epochs,
+  resumed for a third, its checkpoint served folded on the kernels.
 
 It then checks the card against the CPU on small inputs, for the UNets on
-every route and for a small CLIPSeg.
+every route and for a small CLIPSeg, and for one training step; and that
+K1..K5 refuse to run inside an autograd graph.
 
 ``conv3x3_gemm``, ``conv3x3_pair_gemm``, ``up_concat_conv`` and
 ``csa_attention`` have two hand-written kernels each, chosen by dtype:
@@ -54,9 +60,12 @@ import contextlib
 import http.client
 import io
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -69,9 +78,12 @@ from PIL import Image
 
 from egm_unet_torch.cli import predict as predict_cli
 from egm_unet_torch.cli import serve as serve_cli
+from egm_unet_torch.cli import train as train_cli
 from egm_unet_torch.cli.eval_clipseg import fused_masks
-from egm_unet_torch.data.synthetic import synthetic_tp_sample
-from egm_unet_torch.data.transforms import normalize, resize_short_side
+from egm_unet_torch.data.loader import narrow_for_transfer
+from egm_unet_torch.data.synthetic import SyntheticTPDataset, synthetic_tp_sample
+from egm_unet_torch.data.transforms import TrainTransform, normalize, resize_short_side
+from egm_unet_torch.engine import create_train_state, make_train_step, warmup_poly_schedule
 from egm_unet_torch.models import create_model
 from egm_unet_torch.models.clip.model import VIT_B16, CLIPConfig
 from egm_unet_torch.models.clipseg import CLIPDensePredT
@@ -81,6 +93,7 @@ from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU, DoubleConv, cast_wei
 from egm_unet_torch.ops.cuda import (build, conv3x3, csa, launch_counts, mca,
                                      reset_launch_counts, resize2x, upconv)
 from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_of
+from egm_unet_torch.utils.checkpoint import best_epoch, load_payload
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -1057,6 +1070,284 @@ def card_vs_cpu_record(name, shape, gpu, cpu, launches, masks: bool, **extra) ->
               f"{name}: card vs CPU mask agreement {rec['mask_agreement']} < 0.99")
 
 
+# ------------------------------------------------------------ training
+
+TRAIN_BATCH, TRAIN_CROP, TRAIN_LR = 8, 480, 0.02  # cli/train.py defaults
+TRAIN_WARM, TRAIN_TIMED = 3, 10
+
+
+def train_batches(n: int):
+    """``n`` batches of the reference recipe's crops: synthetic 565x752
+    samples through ``TrainTransform(crop_size=480)`` (seed 0), narrowed
+    (uint8 masks) and on the card as float32; the train step casts them."""
+    ds = SyntheticTPDataset(n=2 * TRAIN_BATCH, transforms=TrainTransform(
+        crop_size=TRAIN_CROP, seed=SEED), cache=True)
+    out = []
+    for b in range(n):
+        idx = [(b * TRAIN_BATCH + i) % len(ds) for i in range(TRAIN_BATCH)]
+        images, targets = zip(*(ds[i] for i in idx))
+        x, t = narrow_for_transfer(np.stack(images), np.stack(targets), torch.float32)
+        out.append((x.cuda(), t.cuda()))
+    return out
+
+
+def train_state(base_c: int, remat=False, seed: int = SEED):
+    model = create_model("egm_unet", num_classes=2, base_c=base_c, fold_bn=False,
+                         remat=remat, generator=torch.Generator().manual_seed(seed))
+    # the CLI's schedule for TP-928's 876 training images at batch 8, 200 epochs
+    sched = warmup_poly_schedule(TRAIN_LR, 876 // TRAIN_BATCH, 200)
+    return create_train_state(model.cuda(), sched)
+
+
+def train_config(name: str, dtype, remat, batches, dev) -> dict:
+    """3 warm-up and 10 timed steps of one configuration from the same
+    weights: ms per step (CUDA events around each step, median), img/s, peak
+    memory, the loss of every step; checks that the losses are finite, that
+    parameters and running statistics moved, and that no hand-written kernel
+    was launched."""
+    state = train_state(BASE_C, remat)
+    step = make_train_step(input_dtype=dtype)
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for i in range(TRAIN_WARM + TRAIN_TIMED):
+        x, t = batches[i % len(batches)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, aux = step(state, x, t)
+        end.record()
+        losses.append(aux["loss"])
+        if i >= TRAIN_WARM:
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [v.item() for v in losses]
+    after = state.model.state_dict()
+    still = [k for k in after if torch.equal(before[k], after[k])]
+    total = {kind: sum(1 for k in after if k.endswith((".mean", ".var")) == (kind == "stats"))
+             for kind in ("params", "stats")}
+    moved = {kind: total[kind] - sum(1 for k in still if k.endswith((".mean", ".var"))
+                                     == (kind == "stats")) for kind in total}
+    ms = statistics.median(times)
+    rec = {"phase": "train", "config": name, "model": "egm_unet", "base_c": BASE_C,
+           "batch": TRAIN_BATCH, "crop": TRAIN_CROP, "dtype": str(dtype).split(".")[1],
+           "remat": remat, "tf32": False, "steps_warm": TRAIN_WARM,
+           "steps_timed": TRAIN_TIMED, "ms_per_step": ms, "ms_per_step_runs": times,
+           "img_per_s": TRAIN_BATCH / ms * 1e3, "peak_mem_bytes": peak,
+           "peak_mem_gib": peak / 2 ** 30, "losses": losses, "lr_last": aux["lr"],
+           "moved": moved, "leaves": total, "unmoved": still, "launches": launches,
+           "card": dev["nvidia_smi"]}
+    emit(rec)
+    check(all(np.isfinite(losses)), f"train {name}: losses not finite {losses}")
+    # every running statistic; the parameters as a whole (a leaf with a tiny
+    # gradient can stay put under the warm-up's small first rates)
+    check(moved["stats"] == total["stats"] and moved["params"] >= 0.9 * total["params"],
+          f"train {name}: moved {moved} of {total}; still {still}")
+    check(not any(launches.values()), f"train {name}: kernels launched {launches}")
+    return rec, state, step
+
+
+def phase_train(dev) -> dict:
+    """The training path at full width: egm_unet (A+B+C), base_c 32, 2
+    classes, SGD at the recipe's 0.02 (warm-up and poly schedule), batch 8,
+    480x480 crops; bf16, float32, bf16 with stage remat; then one bf16 step
+    under the profiler."""
+    batches = train_batches(4)
+    launches = {k: 0 for k in SOURCES}
+    for name, dtype, remat in (("bf16", torch.bfloat16, False),
+                               ("float32", torch.float32, False),
+                               ("bf16_remat_stage", torch.bfloat16, "stage")):
+        rec, state, step = train_config(name, dtype, remat, batches, dev)
+        launches = {k: v + rec["launches"][k] for k, v in launches.items()}
+        if name == "bf16":
+            x, t = batches[0]
+            reset_launch_counts()
+            phase_profile("train_profile", lambda: step(state, x, t),
+                          "train_profile.txt", {})
+            check(not any(launch_counts().values()), "profiled train step launched a kernel")
+        del state, step
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_cli(dev) -> tuple:
+    """``cli/train.py`` as a user runs it on the card: 2 epochs of 32
+    synthetic 480x480 crops at batch 8 in bf16, eval at 565; ``--resume``
+    for a third epoch; then the best checkpoint served folded on the kernels
+    by ``Predictor.from_checkpoint``, its masks held against the unfolded
+    graph in eval mode on the same 4 images."""
+    logs = OUT_DIR / "train_cli"
+    if logs.exists():
+        shutil.rmtree(logs)
+    logs.mkdir(parents=True)
+    # checkpoints (about 18 MB an epoch) go to a temporary directory; the
+    # logs and results files to chiprun_out/train_cli
+    tmp = tempfile.TemporaryDirectory(prefix="egm_train_cli_")
+    out = Path(tmp.name)
+    common = ["--synthetic", "--synthetic-size", str(TRAIN_CROP), "--synthetic-n", "32",
+              "--synthetic-val-n", "4", "--batch-size", str(TRAIN_BATCH), "--amp",
+              "--eval-size", "565", "--print-freq", "2"]
+    runs = {}
+    reset_launch_counts()
+    for tag, extra in (("first", ["--epochs", "2", "--save-dir", str(out / "save"),
+                                  "--results-file", str(logs / "results.txt")]),
+                       ("resume", ["--epochs", "3", "--resume", str(out / "save"),
+                                   "--save-dir", str(out / "save2"),
+                                   "--results-file", str(logs / "results2.txt")])):
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            train_cli.main(common + extra)
+        torch.cuda.synchronize()
+        runs[tag] = (printed.getvalue(), time.perf_counter() - t0)
+        (logs / f"{tag}.log").write_text(printed.getvalue())
+    train_launches = launch_counts()
+    check(not any(train_launches.values()), f"train CLI launched kernels {train_launches}")
+    first, resumed = runs["first"][0], runs["resume"][0]
+    check(first.count("dice coefficient: ") == 2 and resumed.count("dice coefficient: ") == 1,
+          "train CLI: dice lines per epoch")
+    blocks = (logs / "results.txt").read_text().count("[epoch: ")
+    check(blocks == 2, f"results.txt holds {blocks} epoch blocks")
+    check("resumed from epoch 1" in resumed, "train CLI did not resume from epoch 1")
+    steps = 32 // TRAIN_BATCH
+    payload = load_payload(str(out / "save2"))
+    check(payload["epoch"] == 2 and payload["state"]["step"] == 3 * steps,
+          f"resumed run ended at epoch {payload['epoch']}, step {payload['state']['step']}")
+    sched = warmup_poly_schedule(TRAIN_LR, steps, 3)
+    lr_first = re.search(r"Epoch: \[2\] \[0\].*?lr: (\d+\.\d{4})", resumed).group(1)
+    check(lr_first == f"{sched(2 * steps + 1):.4f}",
+          f"resumed lr {lr_first} != schedule({2 * steps + 1}) {sched(2 * steps + 1):.4f}")
+    dice = [float(v) for v in re.findall(r"dice coefficient: (\d\.\d+)", first + resumed)]
+
+    # serve the best checkpoint folded, on the kernels
+    save = str(out / "save")
+    epoch = best_epoch(save)
+    images = [synthetic_tp_sample(300 + i)[0] for i in range(4)]
+    train_graph = create_model("egm_unet", base_c=BASE_C, fold_bn=False)
+    train_graph.load_state_dict(load_payload(save, epoch)["state"]["model"])
+    train_graph = train_graph.cuda().eval()
+    agreement, serve_launches = {}, {}
+    for dt in ("float32", "bfloat16"):
+        cfg = PredictorConfig(model_name="egm_unet", base_c=BASE_C, num_classes=2,
+                              batch_size=4, dtype=dt)
+        pred = Predictor.from_checkpoint(save, cfg, device="cuda")
+        batch = np.zeros((4, *BUCKET, 3), np.float32)
+        for row, img in enumerate(images):
+            p = pred._preprocess(img)
+            batch[row, :p.shape[0], :p.shape[1]] = p
+        x = torch.from_numpy(batch).cuda()
+        reset_launch_counts()
+        with torch.inference_mode():
+            masks = pred.forward(x.to(pred.dtype))
+            serve_launches[dt] = launch_counts()
+            ref = train_graph(x)["out"].argmax(dim=-1)
+        agreement[dt] = (masks == ref).float().mean().item()
+        want = {k: v * 1 for k, v in PER_FORWARD.items()}
+        check(serve_launches[dt] == want, f"from_checkpoint {dt} launches "
+                                          f"{serve_launches[dt]} != {want}")
+    rec = {"phase": "train_cli", "epochs": 3, "steps_per_epoch": steps,
+           "batch": TRAIN_BATCH, "crop": TRAIN_CROP, "dtype": "bfloat16",
+           "wall_s_first": runs["first"][1], "wall_s_resume": runs["resume"][1],
+           "dice": dice, "best_epoch": epoch, "resumed_step": payload["state"]["step"],
+           "lr_epoch2_first": lr_first, "launches_train": train_launches,
+           "from_checkpoint_launches": serve_launches,
+           "mask_agreement_folded_vs_unfolded": agreement, "card": dev["nvidia_smi"]}
+    emit(rec)
+    tmp.cleanup()
+    check(agreement["float32"] >= 0.99,
+          f"folded float32 masks agree on {agreement['float32']} < 0.99 of pixels")
+    return train_launches, serve_launches["bfloat16"]
+
+
+def phase_train_card_vs_cpu() -> None:
+    """One step of egm_unet (base_c 8, batch 2, 64x64) on the card and on the
+    CPU from the same weights and batch.  float32 with TF32 off: loss and
+    running statistics.  Gradients in float64 (``input_dtype=float64`` on
+    float32 parameters, on both devices): in float32 the two devices'
+    forwards part by about 1e-6, and there a max-pool or ReLU boundary
+    moves (a 1e-5 relative change of the input moves the CPU's own float32
+    gradients 124 times past the tolerance), so the float32 gradients are
+    recorded, not held."""
+    ds = SyntheticTPDataset(2, transforms=TrainTransform(crop_size=64, seed=SEED))
+    images, targets = (torch.from_numpy(np.stack(a)) for a in zip(*(ds[i] for i in range(2))))
+    images = images.float()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for dt in (torch.float32, torch.float64):
+            model = create_model("egm_unet", base_c=8, fold_bn=False,
+                                 generator=torch.Generator().manual_seed(SEED)).to(dev)
+            state = create_train_state(model, warmup_poly_schedule(TRAIN_LR, 10, 2))
+            state, aux = make_train_step(input_dtype=dt)(state, images.to(dev),
+                                                         targets.to(dev))
+            out[dev, dt] = {"loss": aux["loss"].item(),
+                            "grads": {k: p.grad.detach().cpu().clone()
+                                      for k, p in model.named_parameters()},
+                            "stats": {k: v.detach().cpu().clone()
+                                      for k, v in model.named_buffers()}}
+
+    def grad_ratio(dt):
+        worst = (0.0, "")
+        for k, g in out["cpu", dt]["grads"].items():
+            tol = 1e-3 * g.abs().max().item() + 1e-6
+            worst = max(worst, ((out["cuda", dt]["grads"][k] - g).abs().max().item() / tol, k))
+        return worst
+
+    f32, f64 = torch.float32, torch.float64
+    stats_err = max(((out["cuda", f32]["stats"][k] - v).abs()
+                     / (1e-4 + 1e-4 * v.abs())).max().item()
+                    for k, v in out["cpu", f32]["stats"].items())
+    loss_rel = abs(out["cuda", f32]["loss"] - out["cpu", f32]["loss"]) / abs(out["cpu", f32]["loss"])
+    g64, g32 = grad_ratio(f64), grad_ratio(f32)
+    rec = {"phase": "train_card_vs_cpu", "model": "egm_unet", "base_c": 8, "batch": 2,
+           "crop": 64, "tf32": False, "loss_cpu": out["cpu", f32]["loss"],
+           "loss_card": out["cuda", f32]["loss"], "loss_rel_diff": loss_rel,
+           "stats_worst_over_tol": stats_err, "grads64_worst_over_tol": g64[0],
+           "grads64_worst_leaf": g64[1], "grads32_worst_over_tol": g32[0],
+           "grads32_worst_leaf": g32[1], "leaves": len(out["cpu", f32]["grads"])}
+    emit(rec)
+    check(loss_rel <= 1e-5, f"train card vs CPU: loss differs by {loss_rel} relative")
+    check(stats_err <= 1.0, f"train card vs CPU: running statistics {stats_err} x tol")
+    check(g64[0] <= 1.0, f"train card vs CPU: float64 gradient {g64[1]} at {g64[0]} x tol")
+
+
+def phase_guard() -> None:
+    """On the card each of K1..K5 raises, and launches nothing, when asked to
+    run inside an autograd graph."""
+    gen = torch.Generator().manual_seed(SEED)
+    t = lambda *s: torch.randn(*s, generator=gen).cuda()
+    x, x1 = t(2, 16, 16, 32), t(2, 8, 8, 32)
+    calls = {
+        "mca_fused": lambda g: mca.mca_fused(x.requires_grad_(g), t(2, 16).sigmoid(),
+                                             t(2, 16).sigmoid(), t(2, 32).sigmoid()),
+        "conv3x3_gemm": lambda g: conv3x3.conv3x3_gemm(x, t(3, 3, 32, 32).requires_grad_(g),
+                                                       t(32)),
+        "conv3x3_pair_gemm": lambda g: conv3x3.conv3x3_pair_gemm(
+            x, t(3, 3, 32, 32).requires_grad_(g), t(32), t(3, 3, 32, 32), t(32)),
+        "upsample2x_fused": lambda g: resize2x.upsample2x_fused(x1.requires_grad_(g)),
+        "up_concat_conv": lambda g: upconv.up_concat_conv(
+            x, x1, t(3, 3, 64, 32), t(32).requires_grad_(g))}
+    raised = {}
+    with torch.enable_grad():
+        for name, call in calls.items():
+            reset_launch_counts()
+            try:
+                call(True)
+                raised[name] = False
+            except RuntimeError as e:
+                raised[name] = "forward-only kernel" in str(e)
+            check(launch_counts()[name] == 0, f"{name} launched inside autograd")
+            call(False)
+            check(launch_counts()[name] == 1, f"{name} did not launch without grad")
+    torch.cuda.synchronize()
+    emit({"phase": "autograd_guard", "raised": raised})
+    check(all(raised.values()), f"kernel wrappers did not refuse autograd: {raised}")
+
+
 def summary(records, main_paths: dict) -> list:
     """Per kernel: times summed over one forward's launches at the path shape
     (each shape's time times its sites per forward): ``ms`` with the host's
@@ -1093,23 +1384,31 @@ def summary(records, main_paths: dict) -> list:
     return out
 
 
-@torch.inference_mode()
 def main() -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_records.jsonl").unlink(missing_ok=True)
     dev = phase_device()
     phase_build()
-    pred = make_predictor()
-    httpd, batcher = make_pair_server()
-    images = [synthetic_tp_sample(i)[0] for i in range(BATCH)]
-    records = phase_kernels(pred, batcher.predictor, images)
-    phase_edges()
-    main_paths = {"serving": phase_serving(pred, dev)["launches"],
-                  "fusion": phase_fusion(pred.model, dev)["launches"],
-                  "serve": phase_serve(httpd, batcher, pred, dev)["launches"],
-                  "predict_cli": phase_predict_cli(dev)["launches"]}
-    phase_card_vs_cpu()
+    # serving: no autograd, as every serving entry point runs
+    with torch.inference_mode():
+        pred = make_predictor()
+        httpd, batcher = make_pair_server()
+        images = [synthetic_tp_sample(i)[0] for i in range(BATCH)]
+        records = phase_kernels(pred, batcher.predictor, images)
+        phase_edges()
+        main_paths = {"serving": phase_serving(pred, dev)["launches"],
+                      "fusion": phase_fusion(pred.model, dev)["launches"],
+                      "serve": phase_serve(httpd, batcher, pred, dev)["launches"],
+                      "predict_cli": phase_predict_cli(dev)["launches"]}
+        phase_card_vs_cpu()
+    del pred, httpd, batcher
+    torch.cuda.empty_cache()
+    # training: autograd on, the BatchNorm graph, no hand-written kernel
+    phase_guard()
+    main_paths["train"] = phase_train(dev)
+    main_paths["train_cli"], main_paths["train_cli_serve"] = phase_train_cli(dev)
+    phase_train_card_vs_cpu()
     kernels = summary(records, main_paths)
     print(dev["nvidia_smi"])
     emit({"kernels": kernels})

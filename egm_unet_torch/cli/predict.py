@@ -7,8 +7,9 @@ image's latency and the final FPS.
 
 Images are zero-padded to 64-pixel shape buckets, as the JAX CLI pads them,
 and the pad region is cut off before the argmax.  Timings end in a device
-synchronisation.  The model is the BN-folded graph; ``--weights`` is a file
-holding its ``state_dict``.
+synchronisation.  The model is the BN-folded graph; ``--weights`` is a
+directory written by ``cli/train.py`` (its best epoch, else its latest,
+folded) or a file holding the folded graph's ``state_dict``.
 
     python -m egm_unet_torch.cli.predict --synthetic --amp \\
         --conv-impl pair --upsample-impl fused
@@ -26,7 +27,8 @@ import numpy as np
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--weights", default="save_weights",
-                   help="file holding the model's state_dict")
+                   help="a cli/train.py save directory, or a file holding "
+                        "the folded model's state_dict")
     p.add_argument("--data-path", default="./dataset")
     p.add_argument("--txt-name", default="predict.txt")
     p.add_argument("--save-result", default="./predict/test")
@@ -67,6 +69,7 @@ def main(argv=None):
     from egm_unet_torch.device import resolve_device
     from egm_unet_torch.models import create_model
     from egm_unet_torch.ops.resize import resize_bilinear
+    from egm_unet_torch.utils.checkpoint import folded_state_dict, saved_epochs
 
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.amp else torch.float32
@@ -74,7 +77,11 @@ def main(argv=None):
                          base_c=args.base_c, conv_impl=args.conv_impl,
                          upsample_impl=args.upsample_impl,
                          generator=torch.Generator().manual_seed(0))
-    if os.path.isfile(args.weights):
+    if os.path.isdir(args.weights) and saved_epochs(args.weights):
+        model.load_state_dict(folded_state_dict(args.weights, args.model,
+                                                args.num_classes + 1, args.base_c))
+        print(f"loaded weights from {args.weights}")
+    elif os.path.isfile(args.weights):
         model.load_state_dict(torch.load(args.weights, map_location="cpu",
                                          weights_only=True))
         print(f"loaded weights from {args.weights}")

@@ -1,0 +1,244 @@
+"""Training CLI (port of ``egm_unet_tpu/cli/train.py``), with the reference's
+contract: the same flags, epoch loop and printout (per-epoch confusion
+matrix and ``dice coefficient:``), the results-txt blocks, the checkpoint
+cadence and ``--resume``.  It trains the BatchNorm graph
+(``create_model(..., fold_bn=False)``), which launches no hand-written
+kernel, on one CUDA device unless ``--device cpu`` is given; with no GPU it
+refuses to start rather than fall back to the CPU.
+
+Extra flags over the reference: --model (registry name), --base-c,
+--synthetic* (train without the TP-Dataset), --device.  The JAX package's
+--device-aug and --device-cache (the GPU-resident dataset) and --mesh-data /
+--mesh-spatial (multi-GPU) are not ported yet and exit with an error.
+
+    python -m egm_unet_torch.cli.train --synthetic --amp --epochs 2
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import os
+import time
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="egm_unet_torch training")
+    p.add_argument("--data-path", default="./dataset", help="TP-Dataset root")
+    p.add_argument("--num-classes", default=1, type=int,
+                   help="foreground classes (background added internally)")
+    p.add_argument("--model", default="egm_unet")
+    p.add_argument("--base-c", default=32, type=int)
+    p.add_argument("-b", "--batch-size", default=8, type=int)
+    p.add_argument("--epochs", default=200, type=int)
+    p.add_argument("--lr", default=0.02, type=float)
+    p.add_argument("--momentum", default=0.9, type=float)
+    p.add_argument("--weight-decay", default=1e-4, type=float)
+    p.add_argument("--print-freq", default=10, type=int)
+    p.add_argument("--resume", default="", help="checkpoint dir to resume from")
+    p.add_argument("--start-epoch", default=0, type=int)
+    p.add_argument("--save-best", default=True, type=bool)
+    p.add_argument("--amp", action="store_true",
+                   help="bf16 compute on float32 parameters")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--synthetic-size", default=64, type=int)
+    p.add_argument("--synthetic-n", default=None, type=int,
+                   help="synthetic train-set size (default 4*batch; 876 "
+                        "mirrors the TP-928 train split)")
+    p.add_argument("--synthetic-val-n", default=8, type=int,
+                   help="synthetic val-set size (TP-928 val split: 52)")
+    p.add_argument("--no-aux-losses", action="store_true",
+                   help="train with plain CE only (drops the dice + laplace "
+                        "+ lap + sobel terms of the reference recipe)")
+    p.add_argument("--synthetic-hard", action="store_true",
+                   help="the distractor-laden synthetic generator")
+    p.add_argument("--val-batch-size", default=1, type=int,
+                   help="eval batch (the reference uses 1)")
+    p.add_argument("--device-aug", action="store_true",
+                   help="not ported yet (ROADMAP queue 1 item 6)")
+    p.add_argument("--device-cache", action="store_true",
+                   help="not ported yet (ROADMAP queue 1 item 6)")
+    p.add_argument("--eval-size", default=565, type=int)
+    p.add_argument("--mesh-data", default=None, type=int,
+                   help="not ported yet (ROADMAP queue 1 item 9)")
+    p.add_argument("--mesh-spatial", default=1, type=int,
+                   help="not ported yet (ROADMAP queue 1 item 9)")
+    p.add_argument("--save-dir", default="save_weights")
+    p.add_argument("--save-every", default=100, type=int,
+                   help="periodic checkpoint cadence in epochs (best-dice "
+                        "saves are additional)")
+    p.add_argument("--results-file", default=None)
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--wire-uint8", action="store_true",
+                   help="copy raw uint8 crops and normalize on the device")
+    p.add_argument("--steps-per-dispatch", default=1, type=int,
+                   help="K train steps per step call "
+                        "(engine.make_train_multistep)")
+    p.add_argument("--grad-accum", default=1, type=int,
+                   help="split each batch into N sequential microbatches, "
+                        "one optimizer update (engine.make_train_step_accum)")
+    p.add_argument("--remat", action="store_true",
+                   help="checkpoint each stage in backward (large batches)")
+    p.add_argument("--remat-fine", action="store_true",
+                   help="also checkpoint each conv and GRFB branch inside "
+                        "the stages (implies --remat)")
+    p.add_argument("--device", default=None,
+                   help="default: the current CUDA device; 'cpu' runs on "
+                        "the CPU")
+    return p.parse_args(argv)
+
+
+def refuse_unported(args) -> None:
+    """Exit non-zero for the JAX CLI's flags whose modules are not ported."""
+    if args.device_aug or args.device_cache:
+        raise SystemExit("--device-aug / --device-cache: the GPU-resident "
+                         "dataset is not ported yet (ROADMAP.md queue 1 item 6)")
+    if args.mesh_data is not None or args.mesh_spatial != 1:
+        raise SystemExit("--mesh-data / --mesh-spatial: multi-GPU training is "
+                         "not ported yet (ROADMAP.md queue 1 item 9)")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refuse_unported(args)
+
+    import torch
+
+    from egm_unet_torch import metrics as M
+    from egm_unet_torch.data import (DriveDataset, EvalTransform, SyntheticTPDataset,
+                                     TrainTransform, collate_pad)
+    from egm_unet_torch.data.loader import (BatchLoader, DevicePrefetcher,
+                                            SuperBatcher, narrow_for_transfer,
+                                            to_device)
+    from egm_unet_torch.data.transforms import TP_MEAN, TP_STD
+    from egm_unet_torch.device import resolve_device
+    from egm_unet_torch.engine import (create_train_state, make_eval_step,
+                                       make_train_multistep, make_train_step,
+                                       make_train_step_accum,
+                                       warmup_poly_schedule)
+    from egm_unet_torch.models import create_model
+    from egm_unet_torch.utils.checkpoint import CheckpointManager
+    from egm_unet_torch.utils.logging import MetricLogger, ResultsWriter
+
+    device = resolve_device(args.device)
+    num_classes = args.num_classes + 1
+    dtype = torch.bfloat16 if args.amp else torch.float32
+
+    train_tf = TrainTransform(crop_size=(args.synthetic_size if args.synthetic else 480),
+                              seed=args.seed, wire_uint8=args.wire_uint8)
+    val_tf = EvalTransform(args.eval_size, wire_uint8=args.wire_uint8)
+    if args.synthetic:
+        train_ds = SyntheticTPDataset(n=args.synthetic_n or args.batch_size * 4,
+                                      transforms=train_tf, cache=True,
+                                      hard=args.synthetic_hard)
+        # the val split takes another seed offset than the train split
+        val_ds = SyntheticTPDataset(n=args.synthetic_val_n, transforms=val_tf,
+                                    cache=True, hard=args.synthetic_hard,
+                                    seed0=500_000)
+    else:
+        train_ds = DriveDataset(args.data_path, train_tf, "train.txt")
+        val_ds = DriveDataset(args.data_path, val_tf, "val.txt")
+
+    train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed)
+    val_loader = BatchLoader(val_ds, args.val_batch_size, shuffle=False,
+                             drop_last=False, collate=collate_pad)
+
+    model = create_model(args.model, num_classes=num_classes, base_c=args.base_c,
+                         fold_bn=False,
+                         remat="fine" if args.remat_fine else args.remat,
+                         generator=torch.Generator().manual_seed(args.seed))
+    model = model.to(device)
+    sched = warmup_poly_schedule(args.lr, len(train_loader), args.epochs)
+    state = create_train_state(model, sched, momentum=args.momentum,
+                               weight_decay=args.weight_decay)
+
+    ckpt = CheckpointManager(os.path.abspath(args.save_dir), period=args.save_every)
+    start_epoch = args.start_epoch
+    if args.resume:
+        restored = CheckpointManager(os.path.abspath(args.resume)).restore(state)
+        start_epoch = restored["epoch"] + 1
+        print(f"resumed from epoch {restored['epoch']}")
+
+    k_steps = max(1, args.steps_per_dispatch)
+    norm = (TP_MEAN, TP_STD) if args.wire_uint8 else None
+    accum = max(1, args.grad_accum)
+    if accum > 1 and args.batch_size % accum:
+        raise SystemExit(f"--batch-size {args.batch_size} must be divisible "
+                         f"by --grad-accum {accum}")
+    step_kw = dict(num_classes=num_classes, dice=not args.no_aux_losses,
+                   normalize=norm, input_dtype=dtype)
+    if k_steps > 1:
+        train_step = make_train_multistep(accum=accum, **step_kw)
+    elif accum > 1:
+        train_step = make_train_step_accum(accum, **step_kw)
+    else:
+        train_step = make_train_step(**step_kw)
+    eval_step = make_eval_step(num_classes=num_classes, normalize=norm,
+                               input_dtype=dtype)
+    results = ResultsWriter(args.results_file)
+
+    # the next batch is narrowed (bf16 images, uint8 masks) and copied from
+    # pinned memory in a worker thread while the current step runs
+    def prepare(batch):
+        return to_device(narrow_for_transfer(batch[0], batch[1], dtype), device)
+
+    best_dice = -1.0
+    t_start = time.time()
+    for epoch in range(start_epoch, args.epochs):
+        logger = MetricLogger()
+        # losses stay on the device and are read once per print window, so
+        # that the host does not wait on every step
+        pending = []
+
+        def flush_pending():
+            if not pending:
+                return
+            losses = torch.cat([torch.atleast_1d(a["loss"]).float().cpu()
+                                for a in pending]).numpy()
+            lrs = np.concatenate([np.atleast_1d(np.asarray(a["lr"], np.float64))
+                                  for a in pending])
+            for lo, lr_ in zip(losses, lrs):
+                logger.update(loss=float(lo), lr=float(lr_))
+            pending.clear()
+
+        source = train_loader if k_steps == 1 else SuperBatcher(train_loader, k_steps)
+        window = max(1, args.print_freq // k_steps)
+        step_i = 0
+        for images, targets in logger.log_every(
+                DevicePrefetcher(source, prepare), window, f"Epoch: [{epoch}]"):
+            state, aux = train_step(state, images, targets)
+            pending.append(aux)
+            if step_i % window == 0:  # the logger prints after this body
+                flush_pending()
+            step_i += 1
+        flush_pending()
+        mean_loss = logger.meters["loss"].global_avg
+        lr = logger.meters["lr"].value
+
+        confmat = M.confmat_init(num_classes, device=device)
+        dice = M.dice_init(device=device)
+        for images, targets in DevicePrefetcher(val_loader, prepare):
+            confmat, dice = eval_step(state, images, targets, confmat, dice)
+        block = M.confmat_str(confmat.cpu())
+        dice_val = float(dice.value)
+        print(block)
+        print(f"dice coefficient: {dice_val:.3f}")
+        results.write_epoch(epoch, mean_loss, lr, block, dice_val)
+
+        ckpt.maybe_save(epoch, args.epochs, state,
+                        dice=dice_val if args.save_best else None,
+                        extra={"args": vars(args)})
+        best_dice = max(best_dice, dice_val)
+        gc.collect()
+
+    total = time.time() - t_start
+    print(f"training time {total / 3600:.2f}h; best dice {best_dice:.3f}")
+    train_loader.close()
+    val_loader.close()
+    ckpt.close()
+
+
+if __name__ == "__main__":
+    main()

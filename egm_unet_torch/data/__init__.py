@@ -1,10 +1,12 @@
-"""Host-side data: the TP-Dataset loader, eval transforms and the synthetic
-generator."""
+"""Host-side data: the TP-Dataset loader, train and eval transforms, the
+synthetic generators and the batch loader."""
 
-from egm_unet_torch.data.dataset import DriveDataset  # noqa: F401
+from egm_unet_torch.data.dataset import DriveDataset, collate_pad  # noqa: F401
 from egm_unet_torch.data.synthetic import (  # noqa: F401
     SyntheticTPDataset,
+    synthetic_tp_batch,
     synthetic_tp_sample,
+    synthetic_tp_sample_hard,
 )
 from egm_unet_torch.data.transforms import (  # noqa: F401
     IMAGENET_MEAN,
@@ -12,6 +14,7 @@ from egm_unet_torch.data.transforms import (  # noqa: F401
     TP_MEAN,
     TP_STD,
     EvalTransform,
+    TrainTransform,
     normalize,
     resize_short_side,
 )

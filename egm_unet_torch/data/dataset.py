@@ -5,7 +5,8 @@
     {root}/TP-Dataset/JPEGImages/{name}.jpg
     {root}/TP-Dataset/GroundTruth/{name}.png         mask, 255 = foreground
 
-Masks are binarized to {0, 1} by / 255 and a clip.
+Masks are binarized to {0, 1} by / 255 and a clip.  ``collate_pad`` pads a
+batch of differently sized images for evaluation.
 """
 
 from __future__ import annotations
@@ -44,3 +45,26 @@ class DriveDataset:
         if self.transforms is not None:
             return self.transforms(image, target)
         return image, target
+
+
+def collate_pad(images, targets, pad_multiple: int = 32,
+                img_fill: float = 0.0, target_fill: int = 255):
+    """Pad lists of HWC images and HW targets to the batch's largest size,
+    rounded up to ``pad_multiple``: image fill 0, target fill 255, the
+    ignore index of every loss and metric, as the reference's ``cat_list``
+    pads.  uint8 images (``wire_uint8``) stay uint8, others become
+    float32; targets int32."""
+    def rup(v):
+        return ((v + pad_multiple - 1) // pad_multiple) * pad_multiple
+
+    mh = rup(max(im.shape[0] for im in images))
+    mw = rup(max(im.shape[1] for im in images))
+    img_dtype = np.uint8 if images[0].dtype == np.uint8 else np.float32
+    batch_img = np.full((len(images), mh, mw, images[0].shape[2]), img_fill,
+                        img_dtype)
+    batch_tgt = np.full((len(images), mh, mw), target_fill, np.int32)
+    for i, (im, tg) in enumerate(zip(images, targets)):
+        batch_img[i, : im.shape[0], : im.shape[1]] = im
+        if tg is not None:
+            batch_tgt[i, : tg.shape[0], : tg.shape[1]] = tg
+    return batch_img, batch_tgt

@@ -1,5 +1,12 @@
-"""Eval-time image transforms, host-side numpy and PIL (port of the parts of
-``egm_unet_tpu/data/transforms.py`` that serving uses)."""
+"""Paired image/mask transforms, host-side numpy and PIL (port of
+``egm_unet_tpu/data/transforms.py``).
+
+- train: RandomResize (short side in [0.5, 1.2] x 565) -> flips p=0.5 ->
+  RandomCrop(480, pad 0) -> normalize; every draw from one numpy generator
+  seeded as the JAX package seeds it, so the same seed gives the same crops.
+- eval: Resize (short side 565) -> normalize.
+- normalization statistics: the TP-Dataset's mean and std.
+"""
 
 from __future__ import annotations
 
@@ -35,20 +42,100 @@ def resize_short_side(image: np.ndarray, target: np.ndarray | None, size: int):
     return image, target
 
 
+def hflip(image, target):
+    return image[:, ::-1], target[:, ::-1]
+
+
+def vflip(image, target):
+    return image[::-1], target[::-1]
+
+
+def pad_if_smaller(arr: np.ndarray, size: int, fill=0) -> np.ndarray:
+    """Pad bottom and right to at least ``size``."""
+    h, w = arr.shape[:2]
+    ph, pw = max(size - h, 0), max(size - w, 0)
+    if ph == 0 and pw == 0:
+        return arr
+    pad = [(0, ph), (0, pw)] + [(0, 0)] * (arr.ndim - 2)
+    return np.pad(arr, pad, constant_values=fill)
+
+
+def random_crop(image, target, size: int, rng: np.random.Generator):
+    image = pad_if_smaller(image, size, fill=0)
+    target = pad_if_smaller(target, size, fill=0)
+    h, w = image.shape[:2]
+    top = int(rng.integers(0, h - size + 1))
+    left = int(rng.integers(0, w - size + 1))
+    return (image[top:top + size, left:left + size],
+            target[top:top + size, left:left + size])
+
+
+def center_crop(image, target, size: int):
+    """Paired center crop with torchvision's ``F.center_crop`` semantics:
+    pad with 0 symmetrically if smaller, then crop the centred window (its
+    top ``int(round((h - size) / 2))``, round half to even)."""
+    def _one(arr):
+        h, w = arr.shape[:2]
+        ph, pw = max(size - h, 0), max(size - w, 0)
+        if ph or pw:
+            pad = [(ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2)]
+            pad += [(0, 0)] * (arr.ndim - 2)
+            arr = np.pad(arr, pad, constant_values=0)
+            h, w = arr.shape[:2]
+        top, left = int(round((h - size) / 2.0)), int(round((w - size) / 2.0))
+        return arr[top:top + size, left:left + size]
+
+    return _one(image), _one(target)
+
+
 def normalize(image_u8: np.ndarray, mean=TP_MEAN, std=TP_STD) -> np.ndarray:
     x = image_u8.astype(np.float32) / 255.0
     return (x - mean) / std
 
 
+class TrainTransform:
+    """The reference's train preset.  ``wire_uint8``: return the raw uint8
+    crop and let the train step normalise on the device
+    (``engine.train._device_normalize``), a quarter of the bytes to copy."""
+
+    def __init__(self, base_size=565, crop_size=480, hflip_prob=0.5,
+                 vflip_prob=0.5, mean=TP_MEAN, std=TP_STD, seed=0,
+                 wire_uint8=False):
+        self.min_size = int(0.5 * base_size)
+        self.max_size = int(1.2 * base_size)
+        self.crop_size = crop_size
+        self.hflip_prob = hflip_prob
+        self.vflip_prob = vflip_prob
+        self.mean, self.std = mean, std
+        self.rng = np.random.default_rng(seed)
+        self.wire_uint8 = wire_uint8
+
+    def __call__(self, image: np.ndarray, target: np.ndarray):
+        size = int(self.rng.integers(self.min_size, self.max_size + 1))
+        image, target = resize_short_side(image, target, size)
+        if self.rng.random() < self.hflip_prob:
+            image, target = hflip(image, target)
+        if self.rng.random() < self.vflip_prob:
+            image, target = vflip(image, target)
+        image, target = random_crop(image, target, self.crop_size, self.rng)
+        if self.wire_uint8:
+            return image, target.astype(np.int32)
+        return normalize(image, self.mean, self.std), target.astype(np.int32)
+
+
 class EvalTransform:
     """The reference's eval preset: resize the short side to ``base_size``,
-    normalize; the target (if any) is resized with NEAREST to int32."""
+    normalize (unless ``wire_uint8``, see ``TrainTransform``); the target
+    (if any) is resized with NEAREST to int32."""
 
-    def __init__(self, base_size: int = 565, mean=TP_MEAN, std=TP_STD):
+    def __init__(self, base_size: int = 565, mean=TP_MEAN, std=TP_STD,
+                 wire_uint8: bool = False):
         self.base_size = base_size
         self.mean, self.std = mean, std
+        self.wire_uint8 = wire_uint8
 
     def __call__(self, image: np.ndarray, target: np.ndarray | None):
         image, target = resize_short_side(image, target, self.base_size)
-        image = normalize(image, self.mean, self.std)
+        if not self.wire_uint8:
+            image = normalize(image, self.mean, self.std)
         return image, None if target is None else target.astype(np.int32)

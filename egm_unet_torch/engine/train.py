@@ -1,0 +1,150 @@
+"""Train and eval steps on one device (port of ``egm_unet_tpu/engine/train.py``;
+the JAX package's data-parallel ``jit_sharded`` waits for the multi-GPU
+slice).
+
+A step takes the ``TrainState`` of ``engine/state.py`` and a batch on the
+model's device: NHWC images (float, or raw uint8 with ``normalize``) and
+``[B, H, W]`` integer targets (255 = ignore).  It puts the model in train
+mode, runs forward and backward under ``torch.enable_grad()``, updates the
+BatchNorm running statistics as the forward goes, and makes one SGD update.
+``aux["loss"]`` stays a device tensor, so a step never waits for the device;
+``aux["lr"]`` is ``schedule(step)`` after the step, as the JAX step reports it.
+
+The training graph (``create_model(..., fold_bn=False)``) launches no
+hand-written kernel, as the JAX package's BatchNorm graph reaches no Pallas
+kernel; ``--amp`` is ``input_dtype=torch.bfloat16``: every conv then
+computes in bfloat16 on float32 parameters, BatchNorm and the losses in
+float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from egm_unet_torch import losses as L
+from egm_unet_torch import metrics as M
+
+
+def _device_normalize(images: torch.Tensor, normalize, input_dtype):
+    """Raw uint8 images -> ``(x / 255 - mean) / std`` in float32 on the
+    device, the same numbers as the host's ``transforms.normalize``, then
+    ``input_dtype`` if given."""
+    mean, std = normalize
+    x = images.float() / 255.0
+    x = ((x - torch.as_tensor(mean, dtype=torch.float32, device=x.device))
+         / torch.as_tensor(std, dtype=torch.float32, device=x.device))
+    return x.to(input_dtype) if input_dtype is not None else x
+
+
+def _inputs(images, normalize, input_dtype):
+    if normalize is not None:
+        return _device_normalize(images, normalize, input_dtype)
+    return images.to(input_dtype) if input_dtype is not None else images
+
+
+def _loss(model, images, targets, num_classes, dice, ignore_index):
+    weight = L.default_loss_weight(num_classes, images.device)
+    return L.criterion(model(images), targets, weight, num_classes, dice=dice,
+                       ignore_index=ignore_index)
+
+
+def make_train_step(num_classes: int = 2, dice: bool = True,
+                    ignore_index: int = 255, normalize=None, input_dtype=None):
+    """Returns ``step(state, images, targets) -> (state, aux)``.
+    ``normalize=(mean, std)``: images arrive as raw uint8 and are normalised
+    on the device; ``input_dtype``: the compute dtype the images are cast
+    to."""
+
+    def train_step(state, images, targets):
+        model = state.model
+        model.train()
+        with torch.enable_grad():
+            x = _inputs(images, normalize, input_dtype)
+            loss = _loss(model, x, targets.long(), num_classes, dice, ignore_index)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        state.apply_gradients()
+        return state, {"loss": loss.detach(), "lr": state.lr_fn(state.step)}
+
+    return train_step
+
+
+def make_train_step_accum(accum: int, num_classes: int = 2, dice: bool = True,
+                          ignore_index: int = 255, normalize=None,
+                          input_dtype=None):
+    """Gradient accumulation: the batch of B splits into ``accum``
+    microbatches of B / accum, run one after another.  Each forward
+    normalises with its microbatch's BatchNorm statistics and updates the
+    running ones in order; the gradients are summed, divided by ``accum``
+    and applied in one update; ``aux["loss"]`` is the mean of the
+    microbatches' losses (the first-sample quirk of ``lap_loss`` takes the
+    first sample of each microbatch).  B % accum != 0 raises ValueError."""
+
+    def train_step(state, images, targets):
+        batch = images.shape[0]
+        if batch % accum:
+            raise ValueError(f"batch {batch} not divisible by accum {accum}")
+        mb = batch // accum
+        model = state.model
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        lsum = torch.zeros((), dtype=torch.float32, device=images.device)
+        with torch.enable_grad():
+            x = _inputs(images, normalize, input_dtype)
+            t = targets.long()
+            for i in range(accum):
+                sl = slice(i * mb, (i + 1) * mb)
+                loss = _loss(model, x[sl], t[sl], num_classes, dice, ignore_index)
+                loss.backward()
+                lsum = lsum + loss.detach()
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(accum)
+        state.apply_gradients()
+        return state, {"loss": lsum / accum, "lr": state.lr_fn(state.step)}
+
+    return train_step
+
+
+def make_train_multistep(num_classes: int = 2, dice: bool = True,
+                         ignore_index: int = 255, normalize=None,
+                         input_dtype=None, accum: int = 1):
+    """K train steps per call: ``(state, images[K, B, ...], targets[K, B,
+    ...]) -> (state, aux)`` with ``aux["loss"]`` a [K] tensor and
+    ``aux["lr"]`` a list of K rates, equal to K calls of the single step
+    (``accum > 1``: of the accumulation step)."""
+    if accum > 1:
+        step = make_train_step_accum(accum, num_classes, dice, ignore_index,
+                                     normalize, input_dtype)
+    else:
+        step = make_train_step(num_classes, dice, ignore_index, normalize,
+                               input_dtype)
+
+    def multi_step(state, images, targets):
+        losses, lrs = [], []
+        for k in range(images.shape[0]):
+            state, aux = step(state, images[k], targets[k])
+            losses.append(aux["loss"])
+            lrs.append(aux["lr"])
+        return state, {"loss": torch.stack(losses), "lr": lrs}
+
+    return multi_step
+
+
+def make_eval_step(num_classes: int = 2, ignore_index: int = 255,
+                   normalize=None, input_dtype=None):
+    """Returns ``step(state, images, targets, confmat, dice) -> (confmat,
+    dice)``: the model in eval mode (running statistics), argmax, the
+    confusion matrix and the dice state updated on the device."""
+
+    @torch.no_grad()
+    def eval_step(state, images, targets, confmat, dice_state):
+        model = state.model
+        model.eval()
+        logits = model(_inputs(images, normalize, input_dtype))["out"]
+        targets = targets.long()
+        confmat = M.confmat_update(confmat, targets, logits.argmax(dim=-1))
+        dice_state = M.dice_update(dice_state, logits, targets, ignore_index)
+        return confmat, dice_state
+
+    return eval_step

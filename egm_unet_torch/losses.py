@@ -1,0 +1,149 @@
+"""Training losses (port of ``egm_unet_tpu/losses.py``).
+
+The total criterion is, per output head,
+
+    CE(x, t, weight, ignore=255) + dice_loss + 1.0 * laplace_loss(x)
+    + lap_loss(x, t) + sobel_loss(x, t)
+
+with the reference's quirks kept on purpose:
+
+- ``sobel_loss`` is called with its arguments swapped relative to the
+  reference's signature (the logits land in ``y_true``); the call semantics
+  are kept, not the names;
+- ``lap_loss`` and ``sobel_loss`` narrow the *target* to the first batch
+  element and broadcast it against every prediction of the batch;
+- ``dice_coeff`` replaces a zero denominator with ``2 * inter``;
+- class weights [1, 2] iff there are 2 classes;
+- the weighted cross-entropy mean divides by the sum of the pixel weights.
+
+Layout: logits NHWC ``[B, H, W, C]``, any float dtype (cast to float32);
+targets ``[B, H, W]`` integers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from egm_unet_torch.ops.stencil import LAPLACE4, LAPLACE8, SOBEL_X, SOBEL_Y, stencil2d
+
+IGNORE_INDEX = 255
+
+
+def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+                  weight: Optional[torch.Tensor] = None,
+                  ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """Weighted cross-entropy with ``ignore_index``, ``F.cross_entropy``'s
+    mean: the sum over valid pixels divided by the sum of their class
+    weights."""
+    num_classes = logits.shape[-1]
+    logp = F.log_softmax(logits.float(), dim=-1)
+    valid = target != ignore_index
+    t_safe = torch.where(valid, target, torch.zeros_like(target)).long()
+    onehot = F.one_hot(t_safe, num_classes).float()
+    nll = -(logp * onehot).sum(dim=-1)
+    w = (torch.ones(num_classes, device=logits.device) if weight is None
+         else weight.float().to(logits.device))
+    pix_w = torch.where(valid, (w * onehot).sum(dim=-1), torch.zeros_like(nll))
+    return (nll * pix_w).sum() / pix_w.sum().clamp_min(1e-12)
+
+
+def build_target(target: torch.Tensor, num_classes: int = 2,
+                 ignore_index: int = -100) -> torch.Tensor:
+    """One-hot NHWC target, ignored positions stamped to ``ignore_index`` in
+    every channel."""
+    if ignore_index >= 0:
+        ignore = target == ignore_index
+        cleaned = torch.where(ignore, torch.zeros_like(target), target)
+        onehot = F.one_hot(cleaned.long(), num_classes).float()
+        return torch.where(ignore[..., None], torch.full_like(onehot, float(ignore_index)),
+                           onehot)
+    return F.one_hot(target.long(), num_classes).float()
+
+
+def dice_coeff(x: torch.Tensor, target: torch.Tensor, ignore_index: int = -100,
+               epsilon: float = 1e-6) -> torch.Tensor:
+    """Per-sample dice inside the region of interest, averaged over the
+    batch; ``x`` and ``target`` are ``[B, ...]`` (one channel's probabilities
+    and one-hot targets)."""
+    b = x.shape[0]
+    xf = x.float().reshape(b, -1)
+    tf = target.float().reshape(b, -1)
+    roi = ((tf != float(ignore_index)).float() if ignore_index >= 0
+           else torch.ones_like(tf))
+    inter = (xf * tf * roi).sum(dim=1)
+    sets_sum = (xf * roi).sum(dim=1) + (tf * roi).sum(dim=1)
+    sets_sum = torch.where(sets_sum == 0.0, 2.0 * inter, sets_sum)
+    return ((2.0 * inter + epsilon) / (sets_sum + epsilon)).mean()
+
+
+def multiclass_dice_coeff(x: torch.Tensor, target: torch.Tensor,
+                          ignore_index: int = -100,
+                          epsilon: float = 1e-6) -> torch.Tensor:
+    """Channel mean of ``dice_coeff``, channels last."""
+    num_ch = x.shape[-1]
+    total = 0.0
+    for c in range(num_ch):
+        total = total + dice_coeff(x[..., c], target[..., c], ignore_index, epsilon)
+    return total / num_ch
+
+
+def dice_loss(logits: torch.Tensor, target_onehot: torch.Tensor,
+              multiclass: bool = False, ignore_index: int = -100) -> torch.Tensor:
+    probs = F.softmax(logits.float(), dim=-1)
+    fn = multiclass_dice_coeff if multiclass else dice_coeff
+    return 1.0 - fn(probs, target_onehot, ignore_index=ignore_index)
+
+
+def laplace_loss(logits: torch.Tensor) -> torch.Tensor:
+    """mean |Laplacian4(channel-0 logits)|, a smoothness prior."""
+    return stencil2d(logits[..., 0].float(), LAPLACE4).abs().mean()
+
+
+def lap_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """mean |Lap8(pred ch0) - Lap8(target[0])|: the first target of the
+    batch, broadcast against every prediction."""
+    pred_d2 = stencil2d(logits[..., 0].float(), LAPLACE8)
+    truth_d2 = stencil2d(target[:1].float(), LAPLACE8)
+    return (pred_d2 - truth_d2).abs().mean()
+
+
+def sobel_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Sobel-response L1 between logits ch0 and the first target, taking
+    (logits, target) in the order of the reference's call site."""
+    pred = logits[..., 0].float()
+    truth = target[:1].float()
+    dxp, dyp = stencil2d(pred, SOBEL_X), stencil2d(pred, SOBEL_Y)
+    dxt, dyt = stencil2d(truth, SOBEL_X), stencil2d(truth, SOBEL_Y)
+    return ((dxt - dxp).abs() + (dyt - dyp).abs()).mean()
+
+
+def criterion(outputs: dict, target: torch.Tensor,
+              loss_weight: Optional[torch.Tensor] = None, num_classes: int = 2,
+              dice: bool = True, ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """Total training loss over the model's output heads (``out`` and, where
+    there is one, ``aux`` at weight 0.5)."""
+    losses = {}
+    for name, x in outputs.items():
+        loss = cross_entropy(x, target, loss_weight, ignore_index)
+        if dice:
+            dice_target = build_target(target, num_classes, ignore_index)
+            loss = (loss
+                    + dice_loss(x, dice_target, multiclass=True,
+                                ignore_index=ignore_index)
+                    + 1.0 * laplace_loss(x)
+                    + lap_loss(x, target)
+                    + sobel_loss(x, target))
+        losses[name] = loss
+    if len(losses) == 1:
+        return losses["out"]
+    return losses["out"] + 0.5 * losses["aux"]
+
+
+def default_loss_weight(num_classes: int, device=None) -> Optional[torch.Tensor]:
+    """Class weights [1, 2] iff binary."""
+    if num_classes == 2:
+        return torch.tensor([1.0, 2.0], dtype=torch.float32, device=device)
+    return None

@@ -1,12 +1,17 @@
-"""Evaluation metrics: the confusion matrix (port of the confusion-matrix
-half of ``egm_unet_tpu/metrics.py``).  State is a plain int64 tensor that the
-caller threads through the updates."""
+"""Evaluation metrics: the confusion matrix and the dice coefficient (port of
+``egm_unet_tpu/metrics.py``).  State is a plain int64 tensor, or a
+``DiceState``, that the caller threads through the updates; both stay on the
+device they were made on until the caller reads them."""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
+
+from egm_unet_torch.losses import build_target, multiclass_dice_coeff
 
 
 def confmat_init(num_classes: int, device=None) -> torch.Tensor:
@@ -50,3 +55,31 @@ def confmat_str(mat) -> str:
         [f"{i:.1f}" for i in (iu * 100).tolist()],
         iu.mean().item() * 100,
     )
+
+
+@dataclass(frozen=True)
+class DiceState:
+    cumulative: torch.Tensor  # float32 scalar
+    count: torch.Tensor  # int32 scalar
+
+    @property
+    def value(self) -> torch.Tensor:
+        return torch.where(self.count == 0, torch.zeros_like(self.cumulative),
+                           self.cumulative / self.count.clamp_min(1))
+
+
+def dice_init(device=None) -> DiceState:
+    return DiceState(torch.zeros((), dtype=torch.float32, device=device),
+                     torch.zeros((), dtype=torch.int32, device=device))
+
+
+def dice_update(state: DiceState, logits: torch.Tensor, target: torch.Tensor,
+                ignore_index: int = 255) -> DiceState:
+    """Mean foreground dice of the argmax prediction over the channels after
+    the background one (the reference's ``pred[:, 1:]``), one count per
+    batch."""
+    num_classes = logits.shape[-1]
+    pred = F.one_hot(logits.argmax(dim=-1), num_classes).float()
+    tgt = build_target(target, num_classes, ignore_index)
+    d = multiclass_dice_coeff(pred[..., 1:], tgt[..., 1:], ignore_index=ignore_index)
+    return DiceState(state.cumulative + d, state.count + 1)

@@ -1,5 +1,6 @@
-"""EGM-UNet / GRFB-UNet with the composable A/B/C ablation modules, BN folded
-(port of ``egm_unet_tpu/models/egm_unet.py``).
+"""EGM-UNet / GRFB-UNet with the composable A/B/C ablation modules (port of
+``egm_unet_tpu/models/egm_unet.py``), BN folded for inference or with
+BatchNorm for training (``fold_bn``, ``nn/layers.py``).
 
 - A ``block='edge'``: EdgeEnhancedGRFB after each encoder DoubleConv1.
 - A' ``block='grfb'``: the original GRFB block instead (GRFB-UNet baseline).
@@ -17,29 +18,37 @@ import torch.nn as nn
 from egm_unet_torch.models.unet import Up
 from egm_unet_torch.nn.attention import MCALayer, RecursiveGatedAttention
 from egm_unet_torch.nn.grfb import GRFB, EdgeEnhancedGRFB
-from egm_unet_torch.nn.layers import Conv, ConvBNReLU, DoubleConv
+from egm_unet_torch.nn.layers import Conv, ConvBNReLU, DoubleConv, call_maybe_remat
 from egm_unet_torch.ops.pooling import max_pool2d
+
+REMAT_MODES = (False, True, "stage", "fine")
+
 
 class DoubleConv1(nn.Module):
     """Encoder stage: ConvBNReLU [-> MCALayer] -> ConvBNReLU [-> EGRFB or
-    GRFB]."""
+    GRFB].  ``fine_remat`` checkpoints each ConvBNReLU and each GRFB
+    branch."""
 
     def __init__(self, in_ch: int, features: int, block: Optional[str] = "edge",
-                 use_mca: bool = True):
+                 use_mca: bool = True, fold_bn: bool = True,
+                 fine_remat: bool = False):
         super().__init__()
         if block not in ("edge", "grfb", None):
             raise ValueError(f"unknown block {block!r}")
-        self.conv1 = ConvBNReLU(in_ch, features)
-        self.mca = MCALayer(features) if use_mca else None
-        self.conv2 = ConvBNReLU(features, features)
-        self.egrfb = EdgeEnhancedGRFB(features, features) if block == "edge" else None
-        self.grfb = GRFB(features, features) if block == "grfb" else None
+        self.fine_remat = fine_remat
+        grfb = dict(fold_bn=fold_bn, fine_remat=fine_remat)
+        self.conv1 = ConvBNReLU(in_ch, features, fold_bn)
+        self.mca = MCALayer(features, fused=fold_bn) if use_mca else None
+        self.conv2 = ConvBNReLU(features, features, fold_bn)
+        self.egrfb = (EdgeEnhancedGRFB(features, features, **grfb)
+                      if block == "edge" else None)
+        self.grfb = GRFB(features, features, **grfb) if block == "grfb" else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv1(x)
+        x = call_maybe_remat(self.fine_remat, self.conv1, x)
         if self.mca is not None:
             x = self.mca(x)
-        x = self.conv2(x)
+        x = call_maybe_remat(self.fine_remat, self.conv2, x)
         if self.egrfb is not None:
             x = self.egrfb(x)
         if self.grfb is not None:
@@ -51,21 +60,31 @@ class EGMUNet(nn.Module):
     """``block='edge', use_rga=True, use_mca=True`` is the published A+B+C
     configuration; the decoder is the bilinear one.  ``conv_impl`` and
     ``upsample_impl`` pick the route of the stem and decoder ``DoubleConv``s
-    (``nn.layers.DoubleConv``); the encoder stages hold an MCALayer between
-    their convs and always take ``conv3x3_gemm``.  Input NHWC float with 3
+    of the folded graph (``nn.layers.DoubleConv``); the encoder stages hold
+    an MCALayer between their convs and always take ``conv3x3_gemm``.
+    ``remat`` (training graph): ``True`` / ``"stage"`` checkpoints the stem,
+    each encoder stage and each decoder stage; ``"fine"`` also each
+    ConvBNReLU and GRFB branch inside them.  Input NHWC float with 3
     channels; returns ``{"out": float32 logits}``."""
 
     def __init__(self, num_classes: int = 2, base_c: int = 32,
                  block: Optional[str] = "edge", use_rga: bool = True,
                  use_mca: bool = True, conv_impl: str = "gemm",
-                 upsample_impl: str = "matmul"):
+                 upsample_impl: str = "matmul", fold_bn: bool = True,
+                 remat=False):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat {remat!r}; choose from {REMAT_MODES}")
         c = base_c
-        impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl)
+        self.remat = bool(remat)
+        fine = remat == "fine"
+        impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl,
+                     fold_bn=fold_bn, fine_remat=fine)
         self.in_conv = DoubleConv(3, c, **impls)
 
         def down(cin, cout):
-            return DoubleConv1(cin, cout, block=block, use_mca=use_mca)
+            return DoubleConv1(cin, cout, block=block, use_mca=use_mca,
+                               fold_bn=fold_bn, fine_remat=fine)
 
         self.down1 = down(c, 2 * c)
         self.down2 = down(2 * c, 4 * c)
@@ -79,15 +98,16 @@ class EGMUNet(nn.Module):
         self.out_conv = Conv(c, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> dict:
-        x1 = self.in_conv(x)
-        x2 = self.down1(max_pool2d(x1))
-        x3 = self.down2(max_pool2d(x2))
-        x4 = self.down3(max_pool2d(x3))
-        x5 = self.down4(max_pool2d(x4))
+        stage = lambda mod, *args: call_maybe_remat(self.remat, mod, *args)
+        x1 = stage(self.in_conv, x)
+        x2 = stage(self.down1, max_pool2d(x1))
+        x3 = stage(self.down2, max_pool2d(x2))
+        x4 = stage(self.down3, max_pool2d(x3))
+        x5 = stage(self.down4, max_pool2d(x4))
         if self.attn1 is not None:
             x5 = self.attn1(x5)
-        x = self.up1(x5, x4)
-        x = self.up2(x, x3)
-        x = self.up3(x, x2)
-        x = self.up4(x, x1)
+        x = stage(self.up1, x5, x4)
+        x = stage(self.up2, x, x3)
+        x = stage(self.up3, x, x2)
+        x = stage(self.up4, x, x1)
         return {"out": self.out_conv(x).float()}

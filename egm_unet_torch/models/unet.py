@@ -1,5 +1,6 @@
-"""Vanilla UNet and its decoder stage ``Up``, BN folded (port of
-``egm_unet_tpu/models/unet.py``)."""
+"""Vanilla UNet and its decoder stage ``Up`` (port of
+``egm_unet_tpu/models/unet.py``), BN folded or with BatchNorm for training
+(``fold_bn``, ``nn/layers.py``)."""
 
 from __future__ import annotations
 
@@ -23,14 +24,17 @@ class Up(nn.Module):
     route (``DoubleConv`` lists the others); otherwise the upsampled x1 (by
     ``upsample_impl``) is padded to x2 first.  ``bilinear=False``: a 2x2 / stride 2
     transposed conv ``up_kernel`` (in1, 2, 2, in1 // 2), a per-pixel matmul
-    and pixel shuffle."""
+    and pixel shuffle.  ``fold_bn`` and ``fine_remat`` go to the
+    ``DoubleConv``."""
 
     def __init__(self, in1: int, in2: int, features: int, bilinear: bool = True,
-                 conv_impl: str = "gemm", upsample_impl: str = "matmul"):
+                 conv_impl: str = "gemm", upsample_impl: str = "matmul",
+                 fold_bn: bool = True, fine_remat: bool = False):
         super().__init__()
         self.bilinear = bilinear
         self.upsample_impl = upsample_impl
-        impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl)
+        impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl,
+                     fold_bn=fold_bn, fine_remat=fine_remat)
         if bilinear:
             self.DoubleConv_0 = DoubleConv(in1 + in2, features,
                                            mid_features=(in1 + in2) // 2, **impls)
@@ -58,11 +62,13 @@ class UNet(nn.Module):
 
     def __init__(self, in_channels: int = 3, num_classes: int = 2,
                  bilinear: bool = True, base_c: int = 64,
-                 conv_impl: str = "gemm", upsample_impl: str = "matmul"):
+                 conv_impl: str = "gemm", upsample_impl: str = "matmul",
+                 fold_bn: bool = True):
         super().__init__()
         c = base_c
         factor = 2 if bilinear else 1
-        impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl)
+        impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl,
+                     fold_bn=fold_bn)
         self.in_conv = DoubleConv(in_channels, c, **impls)
         self.down1 = DoubleConv(c, 2 * c, **impls)
         self.down2 = DoubleConv(2 * c, 4 * c, **impls)

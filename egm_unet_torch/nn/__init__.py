@@ -1,5 +1,5 @@
-"""Building blocks of the folded UNet family (NHWC) and of the transformer
-models."""
+"""Building blocks of the UNet family, folded for inference or with
+BatchNorm for training (NHWC), and of the transformer models."""
 
 from egm_unet_torch.nn.attention import (  # noqa: F401
     ChannelAttention,
@@ -11,6 +11,7 @@ from egm_unet_torch.nn.attention import (  # noqa: F401
 from egm_unet_torch.nn.grfb import GRFB, EdgeEnhancedGRFB, FusionConv  # noqa: F401
 from egm_unet_torch.nn.layers import (  # noqa: F401
     BasicConv,
+    BatchNorm,
     Conv,
     ConvBNReLU,
     CoreConv,
@@ -20,4 +21,5 @@ from egm_unet_torch.nn.layers import (  # noqa: F401
     LayerNorm,
     cast_weights,
     pad_to_match,
+    remat,
 )

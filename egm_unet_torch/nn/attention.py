@@ -2,7 +2,8 @@
 ``egm_unet_tpu/nn/attention.py``).
 
 The MCALayer's three gate vectors are small reductions and stay plain
-PyTorch; everything after them is one ``mca_fused`` launch.
+PyTorch; everything after them is one ``mca_fused`` launch in the inference
+graph, and the plain, differentiable ``mca_plain`` in the training graph.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from egm_unet_torch.nn.layers import Conv, uniform_
-from egm_unet_torch.ops.cuda.mca import mca_fused
+from egm_unet_torch.ops.cuda.mca import mca_fused, mca_plain
 
 
 def mca_kernel_size(channels: int) -> int:
@@ -63,17 +64,22 @@ class MCAGate(nn.Module):
 
 class MCALayer(nn.Module):
     """Enhanced multi-dimension coordinate attention (module "C"): the three
-    gates, then the fused enhancement kernel (``ops/cuda/mca.py``)."""
+    gates, then the enhancement (``ops/cuda/mca.py``): the fused kernel
+    (``fused=True``, the inference graph) or its plain composite, which
+    autograd differentiates (``fused=False``, the training graph, on every
+    device)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, fused: bool = True):
         super().__init__()
+        self.fused = fused
         self.h_cw = MCAGate(axis=1, k_size=3)
         self.w_hc = MCAGate(axis=2, k_size=3)
         self.c_hw = MCAGate(axis=3, k_size=mca_kernel_size(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
-        return mca_fused(x, self.h_cw(x), self.w_hc(x), self.c_hw(x), groups=4)
+        enhance = mca_fused if self.fused else mca_plain
+        return enhance(x, self.h_cw(x), self.w_hc(x), self.c_hw(x), groups=4)
 
 
 class RecursiveGatedAttention(nn.Module):

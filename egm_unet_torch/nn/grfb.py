@@ -1,6 +1,8 @@
-"""GRFB blocks, BN folded (port of ``egm_unet_tpu/nn/grfb.py``): the
-edge-enhanced variant (module "A") with its FusionConv, and the original
-receptive-field block of the GRFB-UNet baseline."""
+"""GRFB blocks (port of ``egm_unet_tpu/nn/grfb.py``): the edge-enhanced
+variant (module "A") with its FusionConv, and the original receptive-field
+block of the GRFB-UNet baseline; BN folded, or with BatchNorm for training
+(``fold_bn``, ``nn/layers.py``).  ``fine_remat`` checkpoints each branch
+(the JAX package's per-branch ``nn.remat``)."""
 
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from egm_unet_torch.nn.attention import ChannelAttention, SpatialAttention
-from egm_unet_torch.nn.layers import BasicConv, Conv, EdgeAwareFeatureEnhancer, uniform_
+from egm_unet_torch.nn.layers import (BasicConv, Conv, EdgeAwareFeatureEnhancer,
+                                      remat, uniform_)
 from egm_unet_torch.ops.conv import conv2d
 
 
@@ -23,7 +26,8 @@ class FusionConv(nn.Module):
     ``cat([x, x])`` folds to ``x @ (W_top + W_bottom)``; the three SAME convs
     fold into one 7x7 whose kernel is ``W7 + pad(W5) + pad(W3)``.  The
     parameters keep the reference shapes (``down_kernel`` has 2 * in_ch
-    input rows)."""
+    input rows), so that gradients and updates reach each of them; the
+    block has no BatchNorm and is the same in both graphs."""
 
     def __init__(self, in_ch: int, features: int):
         super().__init__()
@@ -70,34 +74,48 @@ class EdgeEnhancedGRFB(nn.Module):
     0.1 -> ReLU -> target enhancer (out *= 1 + mean_c(sigmoid(conv3x3(out)))).
     Stride 1, as every call site of the model."""
 
-    def __init__(self, in_ch: int, features: int, visual: int = 12):
+    def __init__(self, in_ch: int, features: int, visual: int = 12,
+                 fold_bn: bool = True, fine_remat: bool = False):
         super().__init__()
         inter = max(in_ch // 8, 4)
         v = visual
-        self.edge_enhancer = EdgeAwareFeatureEnhancer(in_ch)
-        self.dir0 = BasicConv(in_ch, 2 * inter, 1)
-        self.dir1 = BasicConv(2 * inter, 2 * inter, 3, padding=v, dilation=v, relu=False)
-        self.dir2 = BasicConv(2 * inter, 2 * inter, 1)
-        self.edge0 = BasicConv(in_ch, inter, 1)
-        self.edge_eafe = EdgeAwareFeatureEnhancer(inter)
-        self.edge1 = BasicConv(inter, 2 * inter, 3, padding=1, groups=inter)
-        self.edge2 = BasicConv(2 * inter, 2 * inter, 3, padding=2 * v, dilation=2 * v,
-                               relu=False)
-        self.edge3 = BasicConv(2 * inter, 2 * inter, 1)
-        self.ctx0 = BasicConv(in_ch, inter, 3, padding=1)
-        self.ctx1 = BasicConv(inter, 2 * inter, 3, padding=1, groups=2)
-        self.ctx2 = BasicConv(2 * inter, 2 * inter, 3, padding=3 * v, dilation=3 * v,
-                              relu=False)
-        self.ctx3 = BasicConv(2 * inter, 2 * inter, 1)
+        self.fine_remat = fine_remat
+        BC = lambda *a, **k: BasicConv(*a, fold_bn=fold_bn, **k)
+        self.edge_enhancer = EdgeAwareFeatureEnhancer(in_ch, fold_bn)
+        self.dir0 = BC(in_ch, 2 * inter, 1)
+        self.dir1 = BC(2 * inter, 2 * inter, 3, padding=v, dilation=v, relu=False)
+        self.dir2 = BC(2 * inter, 2 * inter, 1)
+        self.edge0 = BC(in_ch, inter, 1)
+        self.edge_eafe = EdgeAwareFeatureEnhancer(inter, fold_bn)
+        self.edge1 = BC(inter, 2 * inter, 3, padding=1, groups=inter)
+        self.edge2 = BC(2 * inter, 2 * inter, 3, padding=2 * v, dilation=2 * v,
+                        relu=False)
+        self.edge3 = BC(2 * inter, 2 * inter, 1)
+        self.ctx0 = BC(in_ch, inter, 3, padding=1)
+        self.ctx1 = BC(inter, 2 * inter, 3, padding=1, groups=2)
+        self.ctx2 = BC(2 * inter, 2 * inter, 3, padding=3 * v, dilation=3 * v,
+                       relu=False)
+        self.ctx3 = BC(2 * inter, 2 * inter, 1)
         self.fusion = FusionConv(in_ch + 6 * inter, features)
-        self.shortcut = BasicConv(in_ch, features, 1, relu=False)
+        self.shortcut = BC(in_ch, features, 1, relu=False)
         self.target_enhancer = Conv(features, 3, 3, padding=1)
+
+    def _dir(self, xe):
+        return self.dir2(self.dir1(self.dir0(xe)))
+
+    def _edge(self, xe):
+        return self.edge3(self.edge2(self.edge1(self.edge_eafe(self.edge0(xe)))))
+
+    def _ctx(self, xe):
+        return self.ctx3(self.ctx2(self.ctx1(self.ctx0(xe))))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xe = self.edge_enhancer(x)
-        d = self.dir2(self.dir1(self.dir0(xe)))
-        e = self.edge3(self.edge2(self.edge1(self.edge_eafe(self.edge0(xe)))))
-        c = self.ctx3(self.ctx2(self.ctx1(self.ctx0(xe))))
+        branches = (self._dir, self._edge, self._ctx)
+        if self.fine_remat:
+            d, e, c = (remat(self, b, xe) for b in branches)
+        else:
+            d, e, c = (b(xe) for b in branches)
         out = self.fusion(torch.cat([x, d, e, c], dim=-1))
         out = F.relu(out * 0.1 + self.shortcut(x))
         tw = torch.sigmoid(self.target_enhancer(out))
@@ -110,35 +128,43 @@ class GRFB(nn.Module):
     residual scaled by 0.1, ReLU.  Stride 1, as every call site of the
     model."""
 
-    def __init__(self, in_ch: int, features: int, visual: int = 12):
+    def __init__(self, in_ch: int, features: int, visual: int = 12,
+                 fold_bn: bool = True, fine_remat: bool = False):
         super().__init__()
         inter = in_ch // 8
         v = visual
-        self.b0_0 = BasicConv(in_ch, 2 * inter, 1)
-        self.b0_1 = BasicConv(2 * inter, 2 * inter, 3, padding=v, dilation=v, relu=False)
-        self.b0_2 = BasicConv(2 * inter, 2 * inter, 1)
-        self.b1_0 = BasicConv(in_ch, inter, 1)
-        self.b1_1 = BasicConv(inter, 2 * inter, 3, padding=1, groups=inter)
-        self.b1_2 = BasicConv(2 * inter, 2 * inter, 1)
-        self.b1_3 = BasicConv(2 * inter, 2 * inter, 3, padding=2 * v, dilation=2 * v,
-                              relu=False)
-        self.b1_4 = BasicConv(2 * inter, 2 * inter, 1)
-        self.b2_0 = BasicConv(in_ch, inter, 1)
-        self.b2_1 = BasicConv(inter, 2 * inter, 3, padding=1, groups=inter)
-        self.b2_2 = BasicConv(2 * inter, 2 * inter, 1)
-        self.b2_3 = BasicConv(2 * inter, 2 * inter, 3, padding=1, groups=2 * inter)
-        self.b2_4 = BasicConv(2 * inter, 2 * inter, 1)
-        self.b2_5 = BasicConv(2 * inter, 2 * inter, 3, padding=3 * v, dilation=3 * v,
-                              relu=False)
-        self.b2_6 = BasicConv(2 * inter, 2 * inter, 1)
-        self.conv_linear = BasicConv(in_ch + 6 * inter, features, 1, relu=False)
-        self.shortcut = BasicConv(in_ch, features, 1, relu=False)
+        self.fine_remat = fine_remat
+        BC = lambda *a, **k: BasicConv(*a, fold_bn=fold_bn, **k)
+        self.b0_0 = BC(in_ch, 2 * inter, 1)
+        self.b0_1 = BC(2 * inter, 2 * inter, 3, padding=v, dilation=v, relu=False)
+        self.b0_2 = BC(2 * inter, 2 * inter, 1)
+        self.b1_0 = BC(in_ch, inter, 1)
+        self.b1_1 = BC(inter, 2 * inter, 3, padding=1, groups=inter)
+        self.b1_2 = BC(2 * inter, 2 * inter, 1)
+        self.b1_3 = BC(2 * inter, 2 * inter, 3, padding=2 * v, dilation=2 * v,
+                       relu=False)
+        self.b1_4 = BC(2 * inter, 2 * inter, 1)
+        self.b2_0 = BC(in_ch, inter, 1)
+        self.b2_1 = BC(inter, 2 * inter, 3, padding=1, groups=inter)
+        self.b2_2 = BC(2 * inter, 2 * inter, 1)
+        self.b2_3 = BC(2 * inter, 2 * inter, 3, padding=1, groups=2 * inter)
+        self.b2_4 = BC(2 * inter, 2 * inter, 1)
+        self.b2_5 = BC(2 * inter, 2 * inter, 3, padding=3 * v, dilation=3 * v,
+                       relu=False)
+        self.b2_6 = BC(2 * inter, 2 * inter, 1)
+        self.conv_linear = BC(in_ch + 6 * inter, features, 1, relu=False)
+        self.shortcut = BC(in_ch, features, 1, relu=False)
+
+    def _branch(self, i: int, n: int, x: torch.Tensor) -> torch.Tensor:
+        for j in range(n):
+            x = getattr(self, f"b{i}_{j}")(x)
+        return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b0 = self.b0_2(self.b0_1(self.b0_0(x)))
-        b1 = self.b1_4(self.b1_3(self.b1_2(self.b1_1(self.b1_0(x)))))
-        b2 = x
-        for i in range(7):
-            b2 = getattr(self, f"b2_{i}")(b2)
+        spans = ((0, 3), (1, 5), (2, 7))
+        if self.fine_remat:
+            b0, b1, b2 = (remat(self, self._branch, i, n, x) for i, n in spans)
+        else:
+            b0, b1, b2 = (self._branch(i, n, x) for i, n in spans)
         out = self.conv_linear(torch.cat([x, b0, b1, b2], dim=-1))
         return F.relu(out * 0.1 + self.shortcut(x))

@@ -1,29 +1,39 @@
-"""Conv blocks of the BN-folded inference graph, NHWC (port of
-``egm_unet_tpu/nn/layers.py``).
+"""Conv blocks, NHWC (port of ``egm_unet_tpu/nn/layers.py``), in two forms
+chosen by ``fold_bn`` when a block is built, as in the JAX package:
 
-Only the folded forms exist here: every conv that the JAX graph follows with
-a BatchNorm carries the folded bias instead (``models/fold_bn.py``).  Module
-and parameter names mirror the flax tree (``Conv_0``, ``ConvBNReLU_0``,
-``kernel``, ``bias``, ...) so ``utils/from_flax.py`` maps one onto the other
-by name.
+- ``fold_bn=True`` (the default), the inference graph: every conv that the
+  JAX graph follows with a BatchNorm carries the folded bias instead
+  (``models/fold_bn.py``).  Every 3x3 / stride 1 / pad 1 / dilation 1 /
+  groups 1 conv of a ConvBNReLU or BasicConv goes through the
+  ``conv3x3_gemm`` kernel, at any channel count; the decoder's first conv
+  (``up_pair``) goes through ``up_concat_conv``.  ``DoubleConv`` has two
+  alternative routes, chosen when the model is built: ``conv_impl="pair"``
+  sends both of its convs through one ``conv3x3_pair_gemm`` launch, and
+  ``upsample_impl="fused"`` upsamples the decoder's low-resolution input
+  with ``upsample2x_fused`` before the concat.
+- ``fold_bn=False``, the training graph: conv -> ``BatchNorm`` -> ReLU in
+  plain, differentiable PyTorch, no kernel.  ``module.train()`` normalises
+  with the batch's statistics and updates the running ones;
+  ``module.eval()`` normalises with the running ones.
 
-Every 3x3 / stride 1 / pad 1 / dilation 1 / groups 1 conv of a ConvBNReLU
-or BasicConv goes through the ``conv3x3_gemm`` kernel, at any channel count;
-the decoder's first conv (``up_pair``) goes through ``up_concat_conv``.
-``DoubleConv`` has two alternative routes, chosen when the model is built:
-``conv_impl="pair"`` sends both of its convs through one
-``conv3x3_pair_gemm`` launch, and ``upsample_impl="fused"`` upsamples the
-decoder's low-resolution input with ``upsample2x_fused`` before the concat.
+Module, parameter and buffer names mirror the flax tree (``Conv_0``,
+``BatchNorm_0``, ``ConvBNReLU_0``, ``kernel``, ``bias``, ``scale``, ``mean``,
+``var``, ...) so ``utils/from_flax.py`` maps one onto the other by name.
+The compute dtype is the input's: a bfloat16 input runs every conv in
+bfloat16 on its float32 parameters, cast where they are used, as flax's
+``dtype=bfloat16`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from egm_unet_torch.ops.conv import conv2d
 from egm_unet_torch.ops.cuda.conv3x3 import conv3x3_gemm, conv3x3_pair_gemm
@@ -140,22 +150,155 @@ def cast_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
+def _stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """float32 for bfloat16 and float32 inputs, float64 for float64 ones, as
+    flax promotes BatchNorm's statistics to at least float32."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode BatchNorm over all but the last axis: returns (y, batch
+    mean, batch variance), the last two without gradient.  The backward is
+    the closed form of the forward's derivative, ``scale * rstd * (g -
+    mean(g) - xhat * mean(g * xhat))`` (the last term only where the
+    variance was not clipped), rather than autograd's path through ``E[x^2]
+    - E[x]^2``, whose terms cancel at the size of ``mean^2``: the gradient
+    of a conv bias in front of a BatchNorm, zero in exact arithmetic, stays
+    at float32 rounding of the gradient itself."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        xf = x.to(_stat_dtype(x))
+        dims = tuple(range(xf.ndim - 1))
+        mean = xf.mean(dim=dims)
+        raw = (xf * xf).mean(dim=dims) - mean * mean
+        var = torch.clamp(raw, min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        y = (xf - mean) * (rstd * scale) + bias
+        ctx.save_for_backward(x, mean, rstd, scale, raw > 0)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mean, rstd, scale, live = ctx.saved_tensors
+        g = gy.to(mean.dtype)
+        dims = tuple(range(g.ndim - 1))
+        n = g.numel() // g.shape[-1]
+        xhat = (x.to(mean.dtype) - mean) * rstd
+        gsum = g.sum(dim=dims)
+        gxhat = (g * xhat).sum(dim=dims)
+        gx = (scale * rstd) * (g - gsum / n - xhat * (gxhat / n * live))
+        return gx.to(x.dtype), gxhat, gsum, None
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over N, H and W of an NHWC tensor with flax's semantics
+    (``flax.linen.BatchNorm`` as ``egm_unet_tpu/nn/layers.py::BatchNorm``
+    builds it), not ``nn.BatchNorm2d``'s:
+
+    - batch statistics in float32 (float64 for a float64 input), the biased
+      variance by the fast form
+      ``E[x^2] - E[x]^2`` clipped at 0; eps 1e-5;
+    - running statistics ``ra = m * ra + (1 - m) * batch`` with flax's
+      momentum ``m = 1 - torch_momentum``, the biased variance included
+      (``F.batch_norm`` would store the unbiased one);
+    - ``y = (x - mean) * (scale * rsqrt(var + eps)) + bias`` in that dtype,
+      returned in x's.
+
+    ``scale`` and ``bias`` are parameters, ``mean`` and ``var`` buffers.
+    The running statistics are left alone while ``frozen`` is non-zero: a
+    checkpointed forward that the backward pass recomputes (``remat``) has
+    already updated them once."""
+
+    flax_child = "BatchNorm_0"  # the flax wrapper holds one nn.BatchNorm
+
+    def __init__(self, features: int, torch_momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = 1.0 - torch_momentum
+        self.eps = eps
+        self.frozen = 0
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            mul = torch.rsqrt(self.var + self.eps) * self.scale
+            return ((x.to(_stat_dtype(x)) - self.mean) * mul + self.bias).to(x.dtype)
+        y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias, self.eps)
+        if not self.frozen:
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        return y
+
+
+@contextlib.contextmanager
+def _stats_frozen(owner: nn.Module):
+    bns = [m for m in owner.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.frozen += 1
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen -= 1
+
+
+def remat(owner: nn.Module, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint`` (the JAX
+    package's ``nn.remat``): only the inputs are saved, and the backward pass
+    runs ``fn`` again.  That second run leaves the running statistics of the
+    BatchNorms in ``owner`` alone.  A plain call when autograd is off."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    # no random op in any block, so there is no RNG state to replay
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _stats_frozen(owner)), **kwargs)
+
+
+def call_maybe_remat(on: bool, module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)``, checkpointed when ``on``."""
+    if on:
+        return remat(module, module, *args, **kwargs)
+    return module(*args, **kwargs)
+
+
 class BasicConv(nn.Module):
-    """Folded conv -> (BN) -> ReLU of the GRFB blocks."""
+    """conv -> BatchNorm (torch momentum 0.01) -> ReLU of the GRFB blocks;
+    ``relu=False`` drops the ReLU.  Folded (``fold_bn=True``) the conv
+    carries the BN's bias and a plain 3x3 goes through ``conv3x3_gemm``."""
 
     def __init__(self, in_ch: int, features: int, kernel_size=3, stride=1,
-                 padding=0, dilation=1, groups: int = 1, relu: bool = True):
+                 padding=0, dilation=1, groups: int = 1, relu: bool = True,
+                 fold_bn: bool = True):
         super().__init__()
-        self.relu = relu
+        self.relu, self.fold_bn = relu, fold_bn
         self.Conv_0 = Conv(in_ch, features, kernel_size, stride, padding,
-                           dilation, groups, use_bias=True)
+                           dilation, groups, use_bias=fold_bn)
+        if not fold_bn:
+            self.BatchNorm_0 = BatchNorm(features, torch_momentum=0.01)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.Conv_0
-        if conv.is_plain3x3():
+        if self.fold_bn and conv.is_plain3x3():
             return conv3x3_gemm(x.contiguous(), conv.kernel, conv.bias,
                                 relu=self.relu)
         x = conv(x)
+        if not self.fold_bn:
+            x = self.BatchNorm_0(x)
         return F.relu(x) if self.relu else x
 
 
@@ -169,29 +312,41 @@ def pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 
 class ConvBNReLU(nn.Module):
-    """Folded conv3x3 -> ReLU, one half of DoubleConv.  ``up_pair=(x2, x1)``
-    is the decoder form ``relu(conv3x3(concat([x2, up2x(x1)])))``, x2
-    exactly twice x1's size, in one ``up_concat_conv`` launch."""
+    """conv3x3 (pad 1) -> BatchNorm -> ReLU, one half of DoubleConv.
+    ``up_pair=(x2, x1)`` is the decoder form ``relu(BN(conv3x3(concat([x2,
+    up2x(x1)]))))`` with the upsample and concat inside this module, so that
+    a checkpoint around it saves the small pair.  Folded, x2 must be exactly
+    twice x1's size, and the stage is one ``up_concat_conv`` launch; every
+    other folded call is one ``conv3x3_gemm`` launch."""
 
-    def __init__(self, in_ch: int, features: int):
+    def __init__(self, in_ch: int, features: int, fold_bn: bool = True):
         super().__init__()
-        self.Conv_0 = Conv(in_ch, features, 3, padding=1, use_bias=True)
+        self.fold_bn = fold_bn
+        self.Conv_0 = Conv(in_ch, features, 3, padding=1, use_bias=fold_bn)
+        if not fold_bn:
+            self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x: Optional[torch.Tensor] = None, *,
                 up_pair=None) -> torch.Tensor:
         k, b = self.Conv_0.kernel, self.Conv_0.bias
+        if self.fold_bn:
+            if up_pair is not None:
+                x2, x1 = up_pair
+                return up_concat_conv(x2.contiguous(), x1.contiguous(), k, b)
+            return conv3x3_gemm(x.contiguous(), k, b, relu=True)
         if up_pair is not None:
             x2, x1 = up_pair
-            return up_concat_conv(x2.contiguous(), x1.contiguous(), k, b)
-        return conv3x3_gemm(x.contiguous(), k, b, relu=True)
+            x1 = pad_to_match(upsample2x_bilinear_align_corners(x1), x2)
+            x = torch.cat([x2, x1], dim=-1)
+        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
 
 
 class DoubleConv(nn.Module):
-    """(conv3x3 -> ReLU) x 2 with an optional mid width.  ``up_pair=(x2,
+    """(conv3x3 -> BN -> ReLU) x 2 with an optional mid width.  ``up_pair=(x2,
     x1)`` is the decoder form on ``concat([x2, up2x(x1)])``, x2 exactly twice
     x1's size.
 
-    Routes (the parameters are the same on all of them):
+    Routes of the folded graph (the parameters are the same on all of them):
 
     - ``conv_impl="gemm"``, ``upsample_impl="matmul"`` (default): one
       ``conv3x3_gemm`` launch per conv; with ``up_pair`` the first is one
@@ -201,10 +356,14 @@ class DoubleConv(nn.Module):
       come first, as plain tensor ops.
     - ``conv_impl="gemm"``, ``upsample_impl="fused"``: with ``up_pair``,
       ``upsample2x_fused``, concat, then two ``conv3x3_gemm`` launches.
-    """
+
+    The training graph (``fold_bn=False``) has the default route only;
+    ``fine_remat`` checkpoints each ConvBNReLU (the upsample and concat of
+    ``up_pair`` inside the first)."""
 
     def __init__(self, in_ch: int, features: int, mid_features: Optional[int] = None,
-                 conv_impl: str = "gemm", upsample_impl: str = "matmul"):
+                 conv_impl: str = "gemm", upsample_impl: str = "matmul",
+                 fold_bn: bool = True, fine_remat: bool = False):
         super().__init__()
         if conv_impl not in CONV_IMPLS:
             raise ValueError(f"unknown conv impl {conv_impl!r}; choose from "
@@ -212,10 +371,15 @@ class DoubleConv(nn.Module):
         if upsample_impl not in UPSAMPLE_IMPLS:
             raise ValueError(f"unknown upsample impl {upsample_impl!r}; choose "
                              f"from {list(UPSAMPLE_IMPLS)}")
+        if not fold_bn and (conv_impl, upsample_impl) != ("gemm", "matmul"):
+            raise ValueError("the kernel routes exist in the folded graph only; "
+                             "the training graph (fold_bn=False) takes "
+                             "conv_impl='gemm', upsample_impl='matmul'")
         self.conv_impl, self.upsample_impl = conv_impl, upsample_impl
+        self.fine_remat = fine_remat
         mid = mid_features or features
-        self.ConvBNReLU_0 = ConvBNReLU(in_ch, mid)
-        self.ConvBNReLU_1 = ConvBNReLU(mid, features)
+        self.ConvBNReLU_0 = ConvBNReLU(in_ch, mid, fold_bn)
+        self.ConvBNReLU_1 = ConvBNReLU(mid, features, fold_bn)
 
     def forward(self, x: Optional[torch.Tensor] = None, *,
                 up_pair=None) -> torch.Tensor:
@@ -228,17 +392,25 @@ class DoubleConv(nn.Module):
             c1, c2 = self.ConvBNReLU_0.Conv_0, self.ConvBNReLU_1.Conv_0
             return conv3x3_pair_gemm(x.contiguous(), c1.kernel, c1.bias,
                                      c2.kernel, c2.bias)
-        return self.ConvBNReLU_1(self.ConvBNReLU_0(x, up_pair=up_pair))
+        x = call_maybe_remat(self.fine_remat, self.ConvBNReLU_0, x, up_pair=up_pair)
+        return call_maybe_remat(self.fine_remat, self.ConvBNReLU_1, x)
 
 
 class EdgeAwareFeatureEnhancer(nn.Module):
-    """edge = x - AvgPool3x3(x); w = sigmoid(conv1x1(edge)); out = w*x + x."""
+    """edge = x - AvgPool3x3(x); w = sigmoid(BN(conv1x1(edge)));
+    out = w*x + x.  Folded, the conv carries the BN."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, fold_bn: bool = True):
         super().__init__()
+        self.fold_bn = fold_bn
         self.Conv_0 = Conv(channels, channels, 1)
+        if not fold_bn:
+            self.BatchNorm_0 = BatchNorm(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         edge = x - avg_pool2d(x, 3, 1, 1)
-        w = torch.sigmoid(self.Conv_0(edge))
+        w = self.Conv_0(edge)
+        if not self.fold_bn:
+            w = self.BatchNorm_0(w)
+        w = torch.sigmoid(w)
         return w * x + x

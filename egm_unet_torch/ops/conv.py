@@ -17,7 +17,12 @@ import torch.nn.functional as F
 def conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
            *, stride=1, padding=0, dilation=1, groups: int = 1) -> torch.Tensor:
     """``w`` is (kh, kw, in_ch // groups, out_ch); output in ``x.dtype``."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
+    wt = w.to(x.dtype).permute(3, 2, 0, 1)
+    if wt.dtype == torch.float64:
+        # the CPU's float64 convolution (no oneDNN path) computes the
+        # weight's gradient only into a contiguous tensor
+        wt = wt.contiguous()
+    y = F.conv2d(x.permute(0, 3, 1, 2), wt,
                  None if bias is None else bias.to(x.dtype),
                  stride=stride, padding=padding, dilation=dilation,
                  groups=groups)

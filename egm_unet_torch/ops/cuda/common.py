@@ -30,5 +30,23 @@ def check_same_device(*named) -> None:
             f"{n}={t.device}" for n, t in named if t is not None))
 
 
+def check_no_autograd(name: str, *tensors) -> None:
+    """A hand-written kernel has no backward: run inside an autograd graph it
+    would hand back an output without a ``grad_fn`` and every gradient above
+    it would silently be zero.  So a wrapper raises when autograd is on and
+    an input or weight requires grad, on every device (on the CPU the plain
+    version would differentiate, and a test there should fail as the card
+    would).  The training graph (``fold_bn=False``) never calls a kernel;
+    the inference graph runs under ``torch.inference_mode()`` or
+    ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is a forward-only kernel and an input requires grad with "
+            "autograd on: call the folded model under torch.no_grad() or "
+            "torch.inference_mode(), or train the unfolded graph "
+            "(create_model(..., fold_bn=False))")
+
+
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream

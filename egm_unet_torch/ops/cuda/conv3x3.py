@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from egm_unet_torch.ops.cuda import build
 from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
+                                            check_no_autograd,
                                             check_same_device, stream_handle)
 
 launches = 0  # conv3x3_gemm kernel launches since the last reset
@@ -110,6 +111,7 @@ def conv3x3_gemm(x: torch.Tensor, w: torch.Tensor,
     cast to x's dtype; b (Co,) or None, added in float32."""
     global launches
     _check(x, w, b)
+    check_no_autograd("conv3x3_gemm", x, w, b)
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, relu=relu)
     bsz, h, wd, c = x.shape
@@ -352,6 +354,7 @@ def conv3x3_pair_gemm(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     float32.  Returns (B, H, W, Co) in x's dtype."""
     global pair_launches
     _check_pair(x, w1, b1, w2, b2)
+    check_no_autograd("conv3x3_pair_gemm", x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return conv3x3_pair_plain(x, w1, b1, w2, b2)
     bsz, h, wd, c = x.shape

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from egm_unet_torch.ops.cuda import build
 from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
+                                            check_no_autograd,
                                             check_same_device, stream_handle)
 from egm_unet_torch.ops.shuffle import channel_shuffle
 
@@ -152,6 +153,7 @@ def mca_fused(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor,
     post-sigmoid gates (B, H)/(B, W)/(B, C)."""
     global launches
     _check(x, g_h, g_w, g_c, groups)
+    check_no_autograd("mca_fused", x, g_h, g_w, g_c)
     if x.device.type == "cpu":
         return mca_plain(x, g_h, g_w, g_c, groups)
     b, h, w, c = x.shape

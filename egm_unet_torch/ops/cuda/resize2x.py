@@ -34,6 +34,7 @@ import torch
 
 from egm_unet_torch.ops.cuda import build
 from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
+                                            check_no_autograd,
                                             stream_handle)
 from egm_unet_torch.ops.resize import linear_taps, upsample2x_taps
 
@@ -114,6 +115,7 @@ def upsample2x_fused(x: torch.Tensor) -> torch.Tensor:
     """x (B, H, W, C) contiguous, float32 or bfloat16 -> (B, 2H, 2W, C)."""
     global launches
     check_activation("x", x)
+    check_no_autograd("upsample2x_fused", x)
     if x.device.type == "cpu":
         return upsample2x_plain(x)
     b, h, w, c = x.shape

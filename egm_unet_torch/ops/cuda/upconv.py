@@ -32,6 +32,7 @@ import torch
 
 from egm_unet_torch.ops.cuda import build
 from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
+                                            check_no_autograd,
                                             check_same_device, stream_handle)
 from egm_unet_torch.ops.cuda.conv3x3 import (CONV_MODES, CONV_RESIDENT_CHUNKS,
                                              PAIR_CC, PAIR_RESIDENT_LIMIT, _up,
@@ -156,6 +157,7 @@ def up_concat_conv(x2: torch.Tensor, x1: torch.Tensor, kernel: torch.Tensor,
     working dtype and added in float32."""
     global launches
     _check(x2, x1, kernel, bias)
+    check_no_autograd("up_concat_conv", x2, x1, kernel, bias)
     if x1.device.type == "cpu":
         return up_concat_conv_plain(x2, x1, kernel, bias)
     b, h, w, c1 = x1.shape

@@ -11,6 +11,7 @@ package's deployment cast does.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -20,6 +21,7 @@ from egm_unet_torch.data.transforms import normalize, resize_short_side
 from egm_unet_torch.device import resolve_device
 from egm_unet_torch.models.registry import create_model
 from egm_unet_torch.ops.resize import resize_bilinear
+from egm_unet_torch.utils.checkpoint import folded_state_dict
 from egm_unet_torch.utils.from_flax import load_flax_variables
 
 PAD_MULTIPLE = 64  # bucket granularity, as the JAX Predictor's default
@@ -71,15 +73,20 @@ class Predictor:
     @classmethod
     def from_checkpoint(cls, path: str, config: PredictorConfig = PredictorConfig(),
                         *, device=None) -> "Predictor":
-        """A predictor on the weights in ``path``: a file holding the
-        ``state_dict`` of ``create_model(config.model_name, ...)`` as
-        ``torch.save`` wrote it (what ``cli/eval_clipseg.py --unet-weights``
-        loads too; the names are the same on every kernel route).  The JAX
-        package's orbax checkpoint directories are not read here: that
-        belongs to ``utils/checkpoint.py``, which comes with the training
-        slice."""
+        """A predictor on the weights in ``path``: a directory written by the
+        port's trainer (``cli/train.py``, ``utils/checkpoint.py``), whose best
+        epoch (else its latest) is folded into the inference graph; or a file
+        holding the ``state_dict`` of ``create_model(config.model_name,
+        ...)`` as ``torch.save`` wrote it (what ``cli/eval_clipseg.py
+        --unet-weights`` loads too; the names are the same on every kernel
+        route).  The JAX package's orbax directories are not read (orbax
+        needs JAX)."""
         pred = cls(config=config, device=device)
-        state = torch.load(path, map_location="cpu", weights_only=True)
+        if os.path.isdir(path):
+            state = folded_state_dict(path, config.model_name, config.num_classes,
+                                      config.base_c)
+        else:
+            state = torch.load(path, map_location="cpu", weights_only=True)
         pred.model.load_state_dict(state)
         return pred
 

@@ -1,16 +1,21 @@
-"""Weight bridge: a flax variables tree of numpy arrays -> the port's
-``state_dict``.
+"""Weight bridge between a flax variables tree of numpy arrays and the port's
+``state_dict``, both ways.
 
 The port's modules carry the flax names, so the mapping is by path: the
 parameter ``a.b.kernel`` of a port ``Conv`` module is the flax leaf
 ``a/b/Conv_0/kernel`` (the flax wrapper holds one core ``nn.Conv``; a module
-names that inner child in its ``flax_child`` attribute, as ``LayerNormF32``
-names ``LayerNorm_0``), every other parameter ``a.b.name`` is ``a/b/name``.
-Conv kernels stay HWIO, ``Dense`` kernels [in, out], embeddings and bare
-parameters (``class_embedding``, ``proj``, ``trans_conv_kernel``, ...) and
-the MCA gate kernels ``(k,)`` as they are.  An unfolded tree (one with
-``batch_stats``) is folded first.  A leaf that is missing, consumed twice,
-of the wrong shape or left unconsumed raises.
+names that inner child in its ``flax_child`` attribute, as ``BatchNorm``
+names ``BatchNorm_0`` and ``LayerNormF32`` names ``LayerNorm_0``), every
+other parameter ``a.b.name`` is ``a/b/name``.  Parameters come from the
+``params`` collection, buffers (the BatchNorm ``mean`` and ``var``) from
+``batch_stats``.  Conv kernels stay HWIO, ``Dense`` kernels [in, out],
+embeddings and bare parameters (``class_embedding``, ``proj``,
+``trans_conv_kernel``, ...) and the MCA gate kernels ``(k,)`` as they are.
+
+A tree with ``batch_stats`` loads into the training graph (``fold_bn=False``)
+as it is, and into a folded graph after ``models/fold_bn.py`` folds it.  A
+leaf that is missing, consumed twice, of the wrong shape or left unconsumed
+raises.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def flax_path(model: nn.Module, key: str) -> str:
-    """The flax params path of the port's state_dict entry ``key``."""
+    """The flax path of the port's state_dict entry ``key`` within its
+    collection."""
     mod_path, _, name = key.rpartition(".")
     parts = mod_path.split(".") if mod_path else []
     child = getattr(model.get_submodule(mod_path), "flax_child", None)
@@ -45,25 +51,34 @@ def flax_path(model: nn.Module, key: str) -> str:
     return "/".join(parts + [name])
 
 
+def _collections(model: nn.Module) -> Dict[str, str]:
+    """state_dict key -> the flax collection it belongs to."""
+    buffers = {k for k, _ in model.named_buffers()}
+    return {k: "batch_stats" if k in buffers else "params"
+            for k in model.state_dict()}
+
+
 def state_dict_from_flax(model: nn.Module,
                          variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    if variables.get("batch_stats"):
+    colls = _collections(model)
+    if "batch_stats" not in colls.values() and variables.get("batch_stats"):
         variables = fold_bn_variables(variables)
-    leaves = _flatten(variables["params"])
+    leaves = {(c, p): v for c in ("params", "batch_stats")
+              for p, v in _flatten(variables.get(c, {})).items()}
     consumed = set()
     state = {}
     for key, ref in model.state_dict().items():
-        path = flax_path(model, key)
-        if path in consumed:
-            raise ValueError(f"flax leaf {path!r} consumed twice (again by {key!r})")
-        if path not in leaves:
-            raise KeyError(f"flax tree has no leaf {path!r} for {key!r}")
-        arr = np.asarray(leaves[path], dtype=np.float32)
+        leaf = (colls[key], flax_path(model, key))
+        if leaf in consumed:
+            raise ValueError(f"flax leaf {leaf!r} consumed twice (again by {key!r})")
+        if leaf not in leaves:
+            raise KeyError(f"flax tree has no leaf {leaf!r} for {key!r}")
+        arr = np.asarray(leaves[leaf], dtype=np.float32)
         if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"{path!r}: shape {arr.shape} != {tuple(ref.shape)} "
+            raise ValueError(f"{leaf!r}: shape {arr.shape} != {tuple(ref.shape)} "
                              f"of {key!r}")
         state[key] = torch.from_numpy(arr.copy())
-        consumed.add(path)
+        consumed.add(leaf)
     unused = sorted(set(leaves) - consumed)
     if unused:
         raise ValueError(f"{len(unused)} flax leaves not consumed, e.g. "
@@ -74,3 +89,22 @@ def state_dict_from_flax(model: nn.Module,
 def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     model.load_state_dict(state_dict_from_flax(model, variables))
     return model
+
+
+def flax_from_state_dict(model: nn.Module, state: Mapping[str, torch.Tensor] = None
+                         ) -> Dict[str, Dict[str, Any]]:
+    """The inverse bridge: ``state`` (default ``model.state_dict()``) as a
+    nested flax tree of float32 numpy arrays (copies, not views), ``{"params": ...,
+    "batch_stats": ...}`` (``batch_stats`` empty for a folded graph).  Fold
+    the tree of a training graph with ``models.fold_bn.fold_bn_variables``
+    and load it into the folded graph with ``load_flax_variables``."""
+    state = model.state_dict() if state is None else state
+    colls = _collections(model)
+    tree: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        node = tree[colls[key]]
+        *parents, name = flax_path(model, key).split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = value.detach().float().cpu().numpy().copy()
+    return tree

@@ -18,7 +18,19 @@ shapes the main paths give it, and drives the main paths at full width:
   ``torch.inference_mode()``): egm_unet's BatchNorm graph at batch 8 on
   480x480 crops, SGD 0.02, in bf16, float32 and bf16 with stage remat,
   which must launch no hand-written kernel; ``cli/train.py`` for two epochs,
-  resumed for a third, its checkpoint served folded on the kernels.
+  resumed for a third, its checkpoint served folded on the kernels;
+- train_device_cache: TP-928's scale (876 synthetic 565x752 images) held on
+  the card as 960x960 uint8 canvases (``data/device_cache.py``, about 3.2
+  GB), one epoch of egm_unet training in bf16 at batch 8 on 480 crops
+  augmented on the card (109 steps, one index vector copied per step),
+  beside 30 steps of the host loader; before it, one batch augmented with the
+  same draws on the card and on the CPU (``device_aug_card_vs_cpu``);
+- quant: the serving bucket in bf16 and under int8df, int8 and int8full
+  (``ops/quant.py``, calibrated on the batch), on random weights and on the
+  trained checkpoint: ms per batch, launches, masks against bf16 (int8df
+  must agree on >= 99% of the trained checkpoint's pixels); then
+  ``cli/serve.py --quant int8df`` answering a burst of 4 PNG requests
+  (``serve_quant``).
 
 It then checks the card against the CPU on small inputs, for the UNets on
 every route and for a small CLIPSeg, and for one training step; and that
@@ -80,9 +92,15 @@ from egm_unet_torch.cli import predict as predict_cli
 from egm_unet_torch.cli import serve as serve_cli
 from egm_unet_torch.cli import train as train_cli
 from egm_unet_torch.cli.eval_clipseg import fused_masks
-from egm_unet_torch.data.loader import narrow_for_transfer
+from egm_unet_torch.data.device_aug import (augment_with_params, draw_params,
+                                            source_coords, to_unit)
+from egm_unet_torch.data.device_cache import (DeviceDatasetCache, epoch_generator,
+                                              scale_range, source_canvas, source_size)
+from egm_unet_torch.data.loader import (BatchLoader, DevicePrefetcher,
+                                        narrow_for_transfer, to_device)
 from egm_unet_torch.data.synthetic import SyntheticTPDataset, synthetic_tp_sample
-from egm_unet_torch.data.transforms import TrainTransform, normalize, resize_short_side
+from egm_unet_torch.data.transforms import (TP_MEAN, TP_STD, TrainTransform,
+                                            normalize, resize_short_side)
 from egm_unet_torch.engine import create_train_state, make_train_step, warmup_poly_schedule
 from egm_unet_torch.models import create_model
 from egm_unet_torch.models.clip.model import VIT_B16, CLIPConfig
@@ -92,8 +110,9 @@ from egm_unet_torch.nn.attention import MCALayer
 from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU, DoubleConv, cast_weights
 from egm_unet_torch.ops.cuda import (build, conv3x3, csa, launch_counts, mca,
                                      reset_launch_counts, resize2x, upconv)
+from egm_unet_torch.ops.quant import QUANT_MODES, SHIP_QSTORE_SITES
 from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_of
-from egm_unet_torch.utils.checkpoint import best_epoch, load_payload
+from egm_unet_torch.utils.checkpoint import best_epoch, folded_state_dict, load_payload
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -128,6 +147,12 @@ PER_FORWARD = per_forward(mca_fused=4, conv3x3_gemm=18, up_concat_conv=4)
 PER_FORWARD_PAIR = per_forward(mca_fused=4, conv3x3_gemm=12, conv3x3_pair_gemm=5,
                                upsample2x_fused=4)
 PER_CLIPSEG_FORWARD = per_forward(csa_attention=10)  # blocks 0..9; 10, 11 not needed
+# int8 serving on the default route with the shipping storage sites: int8df
+# keeps K2 and K5 and gives up K1 (its xout site is active); int8 runs every
+# conv as int8_conv and keeps K1; int8full neither
+PER_FORWARD_QUANT = {"int8df": per_forward(conv3x3_gemm=18, up_concat_conv=4),
+                     "int8": per_forward(mca_fused=4),
+                     "int8full": per_forward()}
 # the fusion path, the defaults of cli/predict_clipseg.py
 CLIP_SIZE, CLIP_BATCH, UNET_BATCH, BASE_SIZE, ALPHA = 352, 32, 16, 565, 0.5
 N_FUSION_IMAGES = 16
@@ -1258,10 +1283,11 @@ def phase_train_cli(dev) -> tuple:
            "from_checkpoint_launches": serve_launches,
            "mask_agreement_folded_vs_unfolded": agreement, "card": dev["nvidia_smi"]}
     emit(rec)
+    trained = folded_state_dict(save, "egm_unet", 2, BASE_C)  # for phase_quant
     tmp.cleanup()
     check(agreement["float32"] >= 0.99,
           f"folded float32 masks agree on {agreement['float32']} < 0.99 of pixels")
-    return train_launches, serve_launches["bfloat16"]
+    return train_launches, serve_launches["bfloat16"], trained
 
 
 def phase_train_card_vs_cpu() -> None:
@@ -1348,6 +1374,330 @@ def phase_guard() -> None:
     check(all(raised.values()), f"kernel wrappers did not refuse autograd: {raised}")
 
 
+# ------------------------------------------------ GPU-resident training set
+
+CACHE_N = 876  # TP-928's training split
+CACHE_SRC = source_size(TRAIN_CROP)  # 960: the canvas of 480 crops
+CACHE_TIMED = 30
+
+
+def aug_sources(n: int, first: int):
+    """uint8 canvases of ``n`` synthetic 565x752 samples, as the cache holds
+    them."""
+    srcs = [source_canvas(*synthetic_tp_sample(first + i), CACHE_SRC) for i in range(n)]
+    return (torch.from_numpy(np.stack([s[0] for s in srcs])),
+            torch.from_numpy(np.stack([s[1] for s in srcs])))
+
+
+def phase_device_aug_card_vs_cpu() -> None:
+    """The augmentation of one batch (8 canvases of 960x960, 480 crops) with
+    the same draws on the card and on the CPU: images within 1e-5 in the
+    source's [0, 1] units (x std of the normalization), masks equal except
+    where a source coordinate lies within 1e-4 of an integer (counted)."""
+    imgs, masks = aug_sources(TRAIN_BATCH, 400)
+    lo, hi = scale_range(CACHE_SRC)
+    params = draw_params(torch.Generator().manual_seed(SEED), TRAIN_BATCH, CACHE_SRC,
+                         TRAIN_CROP, lo, hi)
+    cpu_i, cpu_m = augment_with_params(to_unit(imgs), masks, params, TP_MEAN, TP_STD,
+                                       TRAIN_CROP)
+    gi, gm = imgs.cuda(), masks.cuda()
+    gparams = {k: v.cuda() for k, v in params.items()}
+    run = lambda: augment_with_params(to_unit(gi), gm, gparams, TP_MEAN, TP_STD, TRAIN_CROP)
+    card_i, card_m = run()
+    ms = time_ms(run, reps=10, warm=2)
+    std = torch.from_numpy(TP_STD)
+    err_norm = (card_i.cpu() - cpu_i).abs().max().item()
+    err_src = ((card_i.cpu() - cpu_i).abs() * std).max().item()
+    ys, xs = source_coords(params, CACHE_SRC, TRAIN_CROP)
+    near = (((ys - ys.round()).abs() < 1e-4)[:, :, None]
+            | ((xs - xs.round()).abs() < 1e-4)[:, None, :])
+    diff = card_m.cpu() != cpu_m
+    rec = {"phase": "device_aug_card_vs_cpu", "batch": TRAIN_BATCH, "src": CACHE_SRC,
+           "crop": TRAIN_CROP, "sizes": params["sizes"].tolist(),
+           "max_abs_err_normalized": err_norm, "max_abs_err_source_units": err_src,
+           "mask_diff_pixels": int(diff.sum()), "near_integer_pixels": int(near.sum()),
+           "mask_diff_off_near_integer": int((diff & ~near).sum()),
+           "aug_ms_per_batch": ms}
+    emit(rec)
+    check(err_src <= 1e-5, f"device_aug card vs CPU: images differ by {err_src} > 1e-5")
+    check(not (diff & ~near).any(), f"device_aug card vs CPU: {rec['mask_diff_off_near_integer']} "
+                                    "mask pixels differ away from integer coordinates")
+
+
+def h2d_copies(fn) -> tuple:
+    """Host-to-device copies that ``fn`` makes, by torch.profiler: their
+    count, and the outermost operator of each (count by name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    count = sum(e.count for e in prof.key_averages() if "Memcpy HtoD" in e.key)
+    owners = {}
+    for e in prof.events():
+        n = sum(1 for k in getattr(e, "kernels", []) if "Memcpy HtoD" in k.name)
+        if n:
+            top = e
+            while top.cpu_parent is not None:
+                top = top.cpu_parent
+            owners[top.name] = owners.get(top.name, 0) + n
+    return count, owners
+
+
+def loop_ms(batches, step, state, n: int) -> tuple:
+    """Host-clock ms per step of ``n`` steps over the iterator ``batches``
+    (synchronized at both ends), and the state."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x, t = next(batches)
+        state, aux = step(state, x, t)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, state, aux
+
+
+def phase_train_device_cache(dev) -> dict:
+    """The reference's data scale on the card: 876 synthetic 565x752 images
+    cached as 960x960 canvases (about 3.2 GB), egm_unet base_c 32 trained in
+    bf16 at batch 8 on 480 crops for one whole epoch from the cache (109
+    steps, CUDA events around each batch + step), then 30 steps from the
+    host loader (threads, PIL transforms, pinned copies one batch ahead)
+    from the same weights.  Host-to-device copies of 5 batches and of 5
+    batches + steps counted by the profiler (by outermost operator): the
+    index vector must be the only one."""
+    ds = SyntheticTPDataset(n=CACHE_N)
+    lo, hi = scale_range(CACHE_SRC)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cache = DeviceDatasetCache(ds, CACHE_SRC, TP_MEAN, TP_STD, TRAIN_CROP, lo, hi,
+                               out_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mem_delta = torch.cuda.memory_allocated() - mem0
+    check(cache.hbm_bytes == CACHE_N * CACHE_SRC * CACHE_SRC * 4 and mem_delta >= cache.hbm_bytes,
+          f"cache holds {cache.hbm_bytes} B, allocated {mem_delta} B")
+
+    state = train_state(BASE_C)
+    step = make_train_step(input_dtype=torch.bfloat16)
+    gen = epoch_generator(SEED, 0, "cuda")
+    epoch = cache.epoch_iter(gen, TRAIN_BATCH, np.random.default_rng(SEED))
+    reset_launch_counts()
+    h2d0 = cache.h2d_bytes
+    times, losses, steps = [], [], 0
+    worst = torch.zeros((), dtype=torch.uint8, device=cache.imgs.device)
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        batch = next(epoch, None)
+        if batch is None:
+            break
+        x, t = batch
+        check(x.shape == (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3) and x.dtype == torch.bfloat16,
+              f"cache batch {tuple(x.shape)} {x.dtype}")
+        worst = torch.maximum(worst, t.amax())
+        state, aux = step(state, x, t)
+        end.record()
+        losses.append(aux["loss"])
+        steps += 1
+        if steps > TRAIN_WARM:
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    h2d_per_step = (cache.h2d_bytes - h2d0) / steps
+    losses = [v.item() for v in losses]
+    check(steps == CACHE_N // TRAIN_BATCH == 109, f"{steps} steps in an epoch of the cache")
+    check(worst.item() <= 1, f"a cache batch holds mask value {worst.item()} (a sentinel row?)")
+    check(all(np.isfinite(losses)), "device-cache losses are not finite")
+    check(not any(launches.values()), f"device-cache training launched kernels {launches}")
+    # one more epoch: copies per batch and per batch + step, by the profiler
+    more = cache.epoch_iter(epoch_generator(SEED, 1, "cuda"), TRAIN_BATCH,
+                            np.random.default_rng(SEED + 1))
+    copies_batch, owners_batch = h2d_copies(lambda: [next(more) for _ in range(5)])
+    copies_step, owners_step = h2d_copies(lambda: loop_ms(more, step, state, 5))
+    copies_batch, copies_step = copies_batch / 5, copies_step / 5
+    ms_cache_loop, state, _ = loop_ms(more, step, state, CACHE_TIMED)
+    del state, more, epoch
+
+    # the host loader on the same steps, from the same weights
+    host_ds = SyntheticTPDataset(n=CACHE_N, transforms=TrainTransform(
+        crop_size=TRAIN_CROP, seed=SEED))
+    loader = BatchLoader(host_ds, TRAIN_BATCH, shuffle=True, seed=SEED)
+    prepare = lambda b: to_device(narrow_for_transfer(b[0], b[1], torch.bfloat16), "cuda")
+    host_iter = iter(DevicePrefetcher(loader, prepare))
+    hstate = train_state(BASE_C)
+    _, hstate, _ = loop_ms(host_iter, step, hstate, TRAIN_WARM)
+    ms_host_loop, hstate, haux = loop_ms(host_iter, step, hstate, CACHE_TIMED)
+    loader.close()
+    host_bytes = TRAIN_BATCH * TRAIN_CROP * TRAIN_CROP * (3 * 2 + 1)
+    del hstate, cache
+    ms = statistics.median(times)
+    rec = {"phase": "train_device_cache", "model": "egm_unet", "base_c": BASE_C,
+           "images": CACHE_N, "image_hw": [565, 752], "src": CACHE_SRC,
+           "crop": TRAIN_CROP, "batch": TRAIN_BATCH, "dtype": "bfloat16",
+           "cache_build_s": build_s, "hbm_bytes": CACHE_N * CACHE_SRC * CACHE_SRC * 4,
+           "memory_allocated_delta": mem_delta, "steps_per_epoch": steps,
+           "steps_timed": len(times), "ms_per_step": ms, "ms_per_step_runs": times,
+           "img_per_s": TRAIN_BATCH / ms * 1e3, "h2d_bytes_per_step": h2d_per_step,
+           "h2d_copies_per_batch": copies_batch, "h2d_copies_per_step": copies_step,
+           "h2d_owners_5_batches": owners_batch, "h2d_owners_5_steps": owners_step,
+           "ms_per_step_loop_cache": ms_cache_loop, "ms_per_step_loop_host_loader": ms_host_loop,
+           "img_per_s_host_loader": TRAIN_BATCH / ms_host_loop * 1e3,
+           "h2d_bytes_per_step_host_loader": host_bytes, "mask_max": worst.item(),
+           "losses_first_last": [losses[0], losses[-1]], "launches": launches,
+           "card": dev["nvidia_smi"]}
+    emit(rec)
+    # the profiler can miss a copy at the start of its window, never add one
+    check(h2d_per_step == TRAIN_BATCH * 8 and copies_batch <= 1 and copies_step <= 1,
+          f"host-to-device traffic per step: {h2d_per_step} B, {copies_batch} copies per "
+          f"batch, {copies_step} per step (want the one index vector)")
+    return launches
+
+
+# ------------------------------------------------------------ int8 serving
+
+# the hand-written kernels each mode's profile must show
+QUANT_PROFILE_KERNELS = {"int8df": {"conv3x3_gemm": "conv3x3_mma_kernel",
+                                    "up_concat_conv": "upconv_mma_kernel"},
+                         "int8": {"mca_fused": "mca_tile_kernel"}, "int8full": {}}
+
+
+def quant_predictor(mode, state=None):
+    """The serving predictor (egm_unet base_c 32, bf16, batch 8) with int8
+    ``mode`` (None: bf16), random weights of seed 0 or ``state``."""
+    cfg = PredictorConfig(model_name="egm_unet", base_c=BASE_C, num_classes=2,
+                          batch_size=BATCH, dtype="bfloat16", quant=mode)
+    pred = Predictor(config=cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    if state is not None:
+        pred.model.load_state_dict(state)
+    return pred
+
+
+def phase_quant(dev, trained) -> dict:
+    """The serving bucket (batch 8, 576x768) in bf16 and under int8df, int8
+    and int8full, on random weights and on ``train_cli``'s checkpoint: the
+    calibration seconds, ms per batch (CUDA events, median of 5; bf16 before
+    and after), kernel launches of one forward, masks against bf16, and one
+    profiled forward per mode on the trained weights
+    (``chiprun_out/quant_profile_<mode>.txt``).  int8df must agree with
+    bf16 on >= 99% of the trained checkpoint's pixels."""
+    images = [synthetic_tp_sample(500 + i)[0] for i in range(BATCH)]
+    total = {k: 0 for k in SOURCES}
+    out = {}
+    for weights, state in (("random", None), ("trained", trained)):
+        base = quant_predictor(None, state)
+        x = bucket_batch(base, images)
+        ref = base.forward(x)
+        ms_bf16 = [time_ms(lambda: base.forward(x), reps=5, warm=1)]
+        modes = {}
+        for mode in QUANT_MODES:
+            pred = quant_predictor(mode, state)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            masks = pred.forward(x)  # calibrates on x, then one forward
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            check(launches == PER_FORWARD_QUANT[mode],
+                  f"{mode} launches {launches} != {PER_FORWARD_QUANT[mode]}")
+            total = {k: v + launches[k] for k, v in total.items()}
+            with pred.quantizer.active():
+                logits = pred.model(x)["out"]
+            check(tuple(logits.shape) == (BATCH, *BUCKET, 2) and bool(torch.isfinite(logits).all()),
+                  f"{mode} logits not finite [8, 576, 768, 2]")
+            modes[mode] = {"calibration_s": pred.calibration_s,
+                           "scales": len(pred.quantizer.scales),
+                           "sites": pred.quantizer.sites,
+                           "ms_per_batch": time_ms(lambda: pred.forward(x), reps=5, warm=1),
+                           "launches_per_forward": launches,
+                           "mask_agreement_vs_bf16": (masks == ref).float().mean().item()}
+            if weights == "trained":
+                phase_profile(f"quant_profile_{mode}", lambda: pred.forward(x),
+                              f"quant_profile_{mode}.txt", QUANT_PROFILE_KERNELS[mode])
+            del pred, logits
+        ms_bf16.append(time_ms(lambda: base.forward(x), reps=5, warm=1))
+        out[weights] = {"ms_per_batch_bf16": statistics.median(ms_bf16),
+                        "ms_per_batch_bf16_runs": ms_bf16, "modes": modes,
+                        "foreground_share_bf16": ref.float().mean().item()}
+        del base
+        torch.cuda.empty_cache()
+    rec = {"phase": "quant", "model": "egm_unet", "base_c": BASE_C, "batch": BATCH,
+           "bucket": list(BUCKET), "dtype": "bfloat16", "ship_sites": SHIP_QSTORE_SITES,
+           **out, "launches": total, "card": dev["nvidia_smi"]}
+    emit(rec)
+    agree = out["trained"]["modes"]["int8df"]["mask_agreement_vs_bf16"]
+    check(agree >= 0.99, f"int8df masks agree with bf16 on {agree} < 0.99 of the "
+                         "trained checkpoint's pixels")
+    return total
+
+
+def phase_serve_quant(dev) -> dict:
+    """``cli/serve.py --quant int8df --init-random`` on 127.0.0.1: a burst of
+    4 PNG requests from 4 client threads, every one answered; the launches
+    of the forwards it ran (the calibration launches none)."""
+    args = serve_cli.parse_args([
+        "--init-random", "--model", "egm_unet", "--base-c", str(BASE_C),
+        "--num-classes", "1", "--batch-size", str(BATCH), "--dtype", "bfloat16",
+        "--quant", "int8df", "--batch-window-ms", "50", "--host", "127.0.0.1",
+        "--port", "0"])
+    httpd, batcher = serve_cli.make_server(args)
+    pred = batcher.predictor
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    images = [synthetic_tp_sample(600 + i)[0] for i in range(4)]
+    bodies = []
+    for img in images:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        bodies.append(buf.getvalue())
+    replies = [None] * len(images)
+
+    def client(i):
+        replies[i] = http_request(httpd.server_port, "POST", "/predict", bodies[i])
+
+    forwards, hook = count_forwards(pred.model)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(len(images))]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hook.remove()
+    status, body = http_request(httpd.server_port, "GET", "/stats")
+    stats = json.loads(body) if status == 200 else None
+    httpd.shutdown()
+    batcher.shutdown()
+    httpd.server_close()
+    thread.join(timeout=10)
+    check(not thread.is_alive(), "the int8df server thread did not stop")
+    check(all(r is not None and r[0] == 200 for r in replies),
+          f"int8df HTTP statuses {[None if r is None else r[0] for r in replies]}")
+    masks = [np.asarray(Image.open(io.BytesIO(r[1]))) for r in replies]
+    for img, mask in zip(images, masks):
+        check(mask.shape == img.shape[:2] and set(np.unique(mask)) <= {0, 255},
+              f"int8df reply {mask.shape} for request {img.shape}")
+    # one calibration forward (no kernel), then the serving forwards
+    n_fwd = len(forwards) - 1
+    expect = {k: v * n_fwd for k, v in PER_FORWARD_QUANT["int8df"].items()}
+    check(n_fwd >= 1 and launches == expect,
+          f"int8df serve launches {launches} != {expect} for {n_fwd} forwards")
+    check(pred.quantizer.mode == "int8df" and pred.quantizer.sites == SHIP_QSTORE_SITES,
+          f"server quantizer {pred.quantizer.mode} {pred.quantizer.sites}")
+    rec = {"phase": "serve_quant", "quant": "int8df", "requests": len(images),
+           "answered": len(masks), "forwards": n_fwd, "launches": launches,
+           "calibration_s": pred.calibration_s, "wall_s": wall, "stats": stats,
+           "card": dev["nvidia_smi"]}
+    emit(rec)
+    return launches
+
+
 def summary(records, main_paths: dict) -> list:
     """Per kernel: times summed over one forward's launches at the path shape
     (each shape's time times its sites per forward): ``ms`` with the host's
@@ -1407,8 +1757,16 @@ def main() -> None:
     # training: autograd on, the BatchNorm graph, no hand-written kernel
     phase_guard()
     main_paths["train"] = phase_train(dev)
-    main_paths["train_cli"], main_paths["train_cli_serve"] = phase_train_cli(dev)
+    main_paths["train_cli"], main_paths["train_cli_serve"], trained = phase_train_cli(dev)
     phase_train_card_vs_cpu()
+    # the GPU-resident training set
+    phase_device_aug_card_vs_cpu()
+    main_paths["train_device_cache"] = phase_train_device_cache(dev)
+    torch.cuda.empty_cache()
+    # int8 serving
+    with torch.inference_mode():
+        main_paths["quant"] = phase_quant(dev, trained)
+        main_paths["serve_quant"] = phase_serve_quant(dev)
     kernels = summary(records, main_paths)
     print(dev["nvidia_smi"])
     emit({"kernels": kernels})

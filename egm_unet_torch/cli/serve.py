@@ -17,6 +17,7 @@ Endpoints:
 Run:  python -m egm_unet_torch.cli.serve --weights unet.pt --port 8000
       python -m egm_unet_torch.cli.serve --init-random \\
           --conv-impl pair --upsample-impl fused
+      python -m egm_unet_torch.cli.serve --weights unet.pt --quant int8df
 
 ``--weights`` is a file holding the model's ``state_dict``
 (``Predictor.from_checkpoint``).
@@ -59,6 +60,10 @@ def parse_args(argv=None):
                    help="'pair': both convs of a DoubleConv in one kernel")
     p.add_argument("--upsample-impl", default="matmul", choices=["matmul", "fused"],
                    help="'fused': the decoder upsample as one kernel")
+    p.add_argument("--quant", default=None, choices=[None, "int8", "int8df", "int8full"],
+                   help="serving-only int8 quantization (ops/quant.py), "
+                        "calibrated on the first batch; int8df and int8full "
+                        "store the shipping sites 'mca:,egrfb:,:pool' in 8 bits")
     p.add_argument("--init-random", action="store_true",
                    help="serve randomly-initialized weights (smoke tests)")
     return p.parse_args(argv)
@@ -264,7 +269,7 @@ def make_server(args, predictor=None) -> tuple:
                           batch_size=args.batch_size,
                           base_size=args.base_size, dtype=args.dtype,
                           conv_impl=args.conv_impl,
-                          upsample_impl=args.upsample_impl)
+                          upsample_impl=args.upsample_impl, quant=args.quant)
     if predictor is None:
         if args.init_random:  # seed 0
             predictor = Predictor(config=cfg, device=args.device)

@@ -7,9 +7,15 @@ kernel, on one CUDA device unless ``--device cpu`` is given; with no GPU it
 refuses to start rather than fall back to the CPU.
 
 Extra flags over the reference: --model (registry name), --base-c,
---synthetic* (train without the TP-Dataset), --device.  The JAX package's
---device-aug and --device-cache (the GPU-resident dataset) and --mesh-data /
---mesh-spatial (multi-GPU) are not ported yet and exit with an error.
+--synthetic* (train without the TP-Dataset), --device, and the JAX
+package's --device-aug (the host copies fixed-size source canvases, the
+device augments them: ``data/device_aug.py``) and --device-cache (every
+canvas on the device once, one index vector copied per step:
+``data/device_cache.py``; it implies --device-aug).  Both draw each epoch's
+augmentation from a generator seeded by (seed, epoch), so --resume replays
+an uninterrupted run's draws on the cache path; both refuse
+--steps-per-dispatch > 1.  --mesh-data / --mesh-spatial (multi-GPU) are not
+ported yet and exit with an error.
 
     python -m egm_unet_torch.cli.train --synthetic --amp --epochs 2
 """
@@ -57,9 +63,11 @@ def parse_args(argv=None):
     p.add_argument("--val-batch-size", default=1, type=int,
                    help="eval batch (the reference uses 1)")
     p.add_argument("--device-aug", action="store_true",
-                   help="not ported yet (ROADMAP queue 1 item 6)")
+                   help="copy fixed-size source canvases; scale, crop, flip "
+                        "and normalize on the device")
     p.add_argument("--device-cache", action="store_true",
-                   help="not ported yet (ROADMAP queue 1 item 6)")
+                   help="keep the train set's canvases on the device and copy "
+                        "one index vector per step (implies --device-aug)")
     p.add_argument("--eval-size", default=565, type=int)
     p.add_argument("--mesh-data", default=None, type=int,
                    help="not ported yet (ROADMAP queue 1 item 9)")
@@ -91,10 +99,12 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """Exit non-zero for the JAX CLI's flags whose modules are not ported."""
-    if args.device_aug or args.device_cache:
-        raise SystemExit("--device-aug / --device-cache: the GPU-resident "
-                         "dataset is not ported yet (ROADMAP.md queue 1 item 6)")
+    """Exit non-zero for the JAX CLI's flags whose modules are not ported,
+    and for --steps-per-dispatch > 1 with the device-side augmentation
+    (the multi-step stacks host batches)."""
+    if (args.device_aug or args.device_cache) and args.steps_per_dispatch > 1:
+        raise SystemExit("--steps-per-dispatch > 1 needs host-side transforms; "
+                         "drop --device-aug / --device-cache")
     if args.mesh_data is not None or args.mesh_spatial != 1:
         raise SystemExit("--mesh-data / --mesh-spatial: multi-GPU training is "
                          "not ported yet (ROADMAP.md queue 1 item 9)")
@@ -112,6 +122,10 @@ def main(argv=None):
     from egm_unet_torch.data.loader import (BatchLoader, DevicePrefetcher,
                                             SuperBatcher, narrow_for_transfer,
                                             to_device)
+    from egm_unet_torch.data.device_aug import augment_with_params, draw_params, to_unit
+    from egm_unet_torch.data.device_cache import (DeviceDatasetCache, RawSource,
+                                                  epoch_generator, scale_range,
+                                                  source_size)
     from egm_unet_torch.data.transforms import TP_MEAN, TP_STD
     from egm_unet_torch.device import resolve_device
     from egm_unet_torch.engine import (create_train_state, make_eval_step,
@@ -126,12 +140,21 @@ def main(argv=None):
     num_classes = args.num_classes + 1
     dtype = torch.bfloat16 if args.amp else torch.float32
 
-    train_tf = TrainTransform(crop_size=(args.synthetic_size if args.synthetic else 480),
-                              seed=args.seed, wire_uint8=args.wire_uint8)
+    crop = args.synthetic_size if args.synthetic else 480
+    device_aug = args.device_aug or args.device_cache
+    if device_aug:
+        src = source_size(crop)
+        min_size, max_size = scale_range(src)
+        train_tf = RawSource(src)
+    else:
+        train_tf = TrainTransform(crop_size=crop, seed=args.seed,
+                                  wire_uint8=args.wire_uint8)
     val_tf = EvalTransform(args.eval_size, wire_uint8=args.wire_uint8)
     if args.synthetic:
+        # the cache reads each raw sample once: no host copy of them to keep
         train_ds = SyntheticTPDataset(n=args.synthetic_n or args.batch_size * 4,
-                                      transforms=train_tf, cache=True,
+                                      transforms=train_tf,
+                                      cache=not args.device_cache,
                                       hard=args.synthetic_hard)
         # the val split takes another seed offset than the train split
         val_ds = SyntheticTPDataset(n=args.synthetic_val_n, transforms=val_tf,
@@ -162,7 +185,8 @@ def main(argv=None):
         print(f"resumed from epoch {restored['epoch']}")
 
     k_steps = max(1, args.steps_per_dispatch)
-    norm = (TP_MEAN, TP_STD) if args.wire_uint8 else None
+    # the device augmentation normalizes; --wire-uint8 leaves it to the step
+    norm = (TP_MEAN, TP_STD) if args.wire_uint8 and not device_aug else None
     accum = max(1, args.grad_accum)
     if accum > 1 and args.batch_size % accum:
         raise SystemExit(f"--batch-size {args.batch_size} must be divisible "
@@ -179,10 +203,36 @@ def main(argv=None):
                                input_dtype=dtype)
     results = ResultsWriter(args.results_file)
 
+    cache = None
+    if args.device_cache:
+        cache = DeviceDatasetCache(train_ds, src, TP_MEAN, TP_STD, crop, min_size,
+                                   max_size, out_dtype=dtype, device=device)
+        print(f"device cache: {cache.n} samples, {cache.hbm_bytes / 1e6:.0f} MB "
+              f"on {device}")
+
     # the next batch is narrowed (bf16 images, uint8 masks) and copied from
     # pinned memory in a worker thread while the current step runs
     def prepare(batch):
         return to_device(narrow_for_transfer(batch[0], batch[1], dtype), device)
+
+    def train_batches(epoch):
+        """The epoch's device batches: from the cache, or the loader's
+        (augmented on the device with --device-aug)."""
+        if cache is not None:
+            yield from cache.epoch_iter(epoch_generator(args.seed, epoch, device),
+                                        args.batch_size,
+                                        np.random.default_rng(args.seed + epoch))
+            return
+        source = train_loader if k_steps == 1 else SuperBatcher(train_loader, k_steps)
+        gen = epoch_generator(args.seed, epoch, device) if device_aug else None
+        for images, targets in DevicePrefetcher(source, prepare):
+            if gen is not None:
+                params = draw_params(gen, images.shape[0], src, crop, min_size,
+                                     max_size)
+                images, targets = augment_with_params(
+                    to_unit(images), targets, params, TP_MEAN, TP_STD, crop)
+                images = images.to(dtype)
+            yield images, targets
 
     best_dice = -1.0
     t_start = time.time()
@@ -203,11 +253,10 @@ def main(argv=None):
                 logger.update(loss=float(lo), lr=float(lr_))
             pending.clear()
 
-        source = train_loader if k_steps == 1 else SuperBatcher(train_loader, k_steps)
         window = max(1, args.print_freq // k_steps)
         step_i = 0
         for images, targets in logger.log_every(
-                DevicePrefetcher(source, prepare), window, f"Epoch: [{epoch}]"):
+                train_batches(epoch), window, f"Epoch: [{epoch}]"):
             state, aux = train_step(state, images, targets)
             pending.append(aux)
             if step_i % window == 0:  # the logger prints after this body

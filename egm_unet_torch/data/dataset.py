@@ -36,12 +36,17 @@ class DriveDataset:
     def __len__(self):
         return len(self.img_list)
 
-    def __getitem__(self, idx: int):
+    def raw(self, idx: int):
+        """The uint8 image and {0, 1} mask of sample ``idx``, before
+        ``transforms``."""
         from PIL import Image
 
         image = np.asarray(Image.open(self.img_list[idx]).convert("RGB"))
         mask = np.asarray(Image.open(self.mask_list[idx]).convert("L"))
-        target = np.clip(mask.astype(np.float32) / 255.0, 0, 1).astype(np.uint8)
+        return image, np.clip(mask.astype(np.float32) / 255.0, 0, 1).astype(np.uint8)
+
+    def __getitem__(self, idx: int):
+        image, target = self.raw(idx)
         if self.transforms is not None:
             return self.transforms(image, target)
         return image, target

@@ -160,14 +160,19 @@ class SyntheticTPDataset:
     def __len__(self):
         return self.n
 
-    def __getitem__(self, idx: int):
+    def raw(self, idx: int):
+        """The uint8 image and {0, 1} mask of sample ``idx``, before
+        ``transforms``."""
         if self._cache is not None and idx in self._cache:
-            img, mask = self._cache[idx]
-        else:
-            gen = synthetic_tp_sample_hard if self.hard else synthetic_tp_sample
-            img, mask = gen(idx, self.h, self.w, seed0=self.seed0)
-            if self._cache is not None:
-                self._cache[idx] = (img, mask)
+            return self._cache[idx]
+        gen = synthetic_tp_sample_hard if self.hard else synthetic_tp_sample
+        img, mask = gen(idx, self.h, self.w, seed0=self.seed0)
+        if self._cache is not None:
+            self._cache[idx] = (img, mask)
+        return img, mask
+
+    def __getitem__(self, idx: int):
+        img, mask = self.raw(idx)
         if self.transforms is not None:
             return self.transforms(img, mask)
         return img, mask

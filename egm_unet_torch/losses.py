@@ -22,6 +22,7 @@ targets ``[B, H, W]`` integers.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -142,8 +143,11 @@ def criterion(outputs: dict, target: torch.Tensor,
     return losses["out"] + 0.5 * losses["aux"]
 
 
+@functools.lru_cache(maxsize=None)
 def default_loss_weight(num_classes: int, device=None) -> Optional[torch.Tensor]:
-    """Class weights [1, 2] iff binary."""
+    """Class weights [1, 2] iff binary; one tensor per device, made once (a
+    train step copies nothing to the device for it).  Do not modify it."""
     if num_classes == 2:
-        return torch.tensor([1.0, 2.0], dtype=torch.float32, device=device)
+        with torch.inference_mode(False):
+            return torch.tensor([1.0, 2.0], dtype=torch.float32, device=device)
     return None

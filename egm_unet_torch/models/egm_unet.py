@@ -20,6 +20,7 @@ from egm_unet_torch.nn.attention import MCALayer, RecursiveGatedAttention
 from egm_unet_torch.nn.grfb import GRFB, EdgeEnhancedGRFB
 from egm_unet_torch.nn.layers import Conv, ConvBNReLU, DoubleConv, call_maybe_remat
 from egm_unet_torch.ops.pooling import max_pool2d
+from egm_unet_torch.ops.quant import qstore
 
 REMAT_MODES = (False, True, "stage", "fine")
 
@@ -99,11 +100,13 @@ class EGMUNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict:
         stage = lambda mod, *args: call_maybe_remat(self.remat, mod, *args)
+        # the pooled maps are int8 storage sites ``:pool1`` .. ``:pool4``
+        pool = lambda v, tag: qstore(self, max_pool2d(v), tag)
         x1 = stage(self.in_conv, x)
-        x2 = stage(self.down1, max_pool2d(x1))
-        x3 = stage(self.down2, max_pool2d(x2))
-        x4 = stage(self.down3, max_pool2d(x3))
-        x5 = stage(self.down4, max_pool2d(x4))
+        x2 = stage(self.down1, pool(x1, "pool1"))
+        x3 = stage(self.down2, pool(x2, "pool2"))
+        x4 = stage(self.down3, pool(x3, "pool3"))
+        x5 = stage(self.down4, pool(x4, "pool4"))
         if self.attn1 is not None:
             x5 = self.attn1(x5)
         x = stage(self.up1, x5, x4)

@@ -4,6 +4,10 @@
 The MCALayer's three gate vectors are small reductions and stay plain
 PyTorch; everything after them is one ``mca_fused`` launch in the inference
 graph, and the plain, differentiable ``mca_plain`` in the training graph.
+While calibrating int8 scales, or where its ``xout`` storage site is active
+(``ops/quant.py``), the layer takes the JAX package's unfused route instead:
+the three gated tensors averaged into ``x_out``, its storage site, then the
+enhancement in plain tensor ops.
 """
 
 from __future__ import annotations
@@ -16,6 +20,9 @@ import torch.nn.functional as F
 
 from egm_unet_torch.nn.layers import Conv, uniform_
 from egm_unet_torch.ops.cuda.mca import mca_fused, mca_plain
+from egm_unet_torch.ops.pooling import avg_pool2d, max_pool2d, min_pool2d
+from egm_unet_torch.ops.quant import current_quant_mode, qstore, site_active
+from egm_unet_torch.ops.shuffle import channel_shuffle
 
 
 def mca_kernel_size(channels: int) -> int:
@@ -78,8 +85,31 @@ class MCALayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
+        gates = self.h_cw(x), self.w_hc(x), self.c_hw(x)
+        if self.fused and (current_quant_mode() == "calibrate"
+                           or site_active(self, "xout")):
+            return qstore(self, mca_unfused(self, x, *gates), "out")
         enhance = mca_fused if self.fused else mca_plain
-        return enhance(x, self.h_cw(x), self.w_hc(x), self.c_hw(x), groups=4)
+        return qstore(self, enhance(x, *gates, groups=4), "out")
+
+
+def mca_unfused(layer: nn.Module, x: torch.Tensor, g_h: torch.Tensor,
+                g_w: torch.Tensor, g_c: torch.Tensor) -> torch.Tensor:
+    """The JAX package's unfused MCALayer route, op by op in x's dtype: each
+    gate applied to x, ``x_out`` their mean (storage site ``xout`` of
+    ``layer``), then ``0.4 x_out + 0.2 (max3 - min3) + 0.2 avg3((x_out -
+    avg3 x_out)^2) + 0.1 (1.1 x_out) + 0.1 shuffle(x_out)``."""
+    dt = x.dtype
+    x_h = x * g_h.to(dt)[:, :, None, None]
+    x_w = x * g_w.to(dt)[:, None, :, None]
+    x_c = x * g_c.to(dt)[:, None, None, :]
+    x_out = qstore(layer, (x_c + x_h + x_w) / 3.0, "xout")
+    local_range = max_pool2d(x_out, 3, 1, 1) - min_pool2d(x_out, 3, 1, 1)
+    mean = avg_pool2d(x_out, 3, 1, 1)
+    local_variance = avg_pool2d((x_out - mean) ** 2, 3, 1, 1)
+    freq = x_out * torch.tensor(1.1, dtype=dt)
+    return (0.4 * x_out + 0.2 * local_range + 0.2 * local_variance + 0.1 * freq
+            + 0.1 * channel_shuffle(x_out, 4))
 
 
 class RecursiveGatedAttention(nn.Module):

@@ -16,6 +16,7 @@ from egm_unet_torch.nn.attention import ChannelAttention, SpatialAttention
 from egm_unet_torch.nn.layers import (BasicConv, Conv, EdgeAwareFeatureEnhancer,
                                       remat, uniform_)
 from egm_unet_torch.ops.conv import conv2d
+from egm_unet_torch.ops.quant import qstore
 
 
 class FusionConv(nn.Module):
@@ -65,7 +66,7 @@ class FusionConv(nn.Module):
             self.conv3_bias + self.conv5_bias + self.conv7_bias).to(x.dtype)
         s = s * self.spatial(s)
         c = self.channel(x)
-        return self.up(res + s * c)
+        return qstore(self, self.up(res + s * c), "out", signed=True)
 
 
 class EdgeEnhancedGRFB(nn.Module):
@@ -110,16 +111,17 @@ class EdgeEnhancedGRFB(nn.Module):
         return self.ctx3(self.ctx2(self.ctx1(self.ctx0(xe))))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xe = self.edge_enhancer(x)
+        # int8 storage sites (ops/quant.py): xe, res, enh
+        xe = qstore(self, self.edge_enhancer(x), "xe")
         branches = (self._dir, self._edge, self._ctx)
         if self.fine_remat:
             d, e, c = (remat(self, b, xe) for b in branches)
         else:
             d, e, c = (b(xe) for b in branches)
         out = self.fusion(torch.cat([x, d, e, c], dim=-1))
-        out = F.relu(out * 0.1 + self.shortcut(x))
+        out = qstore(self, F.relu(out * 0.1 + self.shortcut(x)), "res")
         tw = torch.sigmoid(self.target_enhancer(out))
-        return out * (1.0 + tw.mean(dim=-1, keepdim=True))
+        return qstore(self, out * (1.0 + tw.mean(dim=-1, keepdim=True)), "enh")
 
 
 class GRFB(nn.Module):
@@ -167,4 +169,4 @@ class GRFB(nn.Module):
         else:
             b0, b1, b2 = (self._branch(i, n, x) for i, n in spans)
         out = self.conv_linear(torch.cat([x, b0, b1, b2], dim=-1))
-        return F.relu(out * 0.1 + self.shortcut(x))
+        return qstore(self, F.relu(out * 0.1 + self.shortcut(x)), "out")

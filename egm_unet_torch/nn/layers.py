@@ -16,6 +16,12 @@ chosen by ``fold_bn`` when a block is built, as in the JAX package:
   with the batch's statistics and updates the running ones;
   ``module.eval()`` normalises with the running ones.
 
+Under int8 serving (``ops/quant.py``) every ``Conv`` records its input
+while calibrating and runs ``int8_conv`` in the int8 and int8full modes,
+where the folded blocks leave their kernels for ``Conv.forward``; the
+outputs of ConvBNReLU and BasicConv are storage sites (``out``), and a
+DoubleConv whose first ``out`` site is active runs its convs one by one.
+
 Module, parameter and buffer names mirror the flax tree (``Conv_0``,
 ``BatchNorm_0``, ``ConvBNReLU_0``, ``kernel``, ``bias``, ``scale``, ``mean``,
 ``var``, ...) so ``utils/from_flax.py`` maps one onto the other by name.
@@ -39,6 +45,8 @@ from egm_unet_torch.ops.conv import conv2d
 from egm_unet_torch.ops.cuda.conv3x3 import conv3x3_gemm, conv3x3_pair_gemm
 from egm_unet_torch.ops.cuda.upconv import up_concat_conv
 from egm_unet_torch.ops.pooling import avg_pool2d
+from egm_unet_torch.ops.quant import (INT8_CONV_MODES, convs_on_kernels,
+                                      current_quantizer, qstore, site_active)
 from egm_unet_torch.ops.resize import (UPSAMPLE_IMPLS,
                                        upsample2x_bilinear_align_corners)
 
@@ -84,6 +92,12 @@ class Conv(nn.Module):
             uniform_(self.bias, 1.0 / math.sqrt(fan_in), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q = current_quantizer()  # ops/quant.py: calibration, int8 convs
+        if q is not None:
+            if q.mode == "calibrate":
+                q.record(self, "act_absmax", x)
+            elif q.mode in INT8_CONV_MODES:
+                return q.conv(self, x)
         return conv2d(x, self.kernel, self.bias, stride=self.stride,
                       padding=self.padding, dilation=self.dilation,
                       groups=self.groups)
@@ -293,13 +307,16 @@ class BasicConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.Conv_0
-        if self.fold_bn and conv.is_plain3x3():
-            return conv3x3_gemm(x.contiguous(), conv.kernel, conv.bias,
-                                relu=self.relu)
-        x = conv(x)
-        if not self.fold_bn:
-            x = self.BatchNorm_0(x)
-        return F.relu(x) if self.relu else x
+        if self.fold_bn and conv.is_plain3x3() and convs_on_kernels():
+            x = conv3x3_gemm(x.contiguous(), conv.kernel, conv.bias, relu=self.relu)
+        else:
+            x = conv(x)
+            if not self.fold_bn:
+                x = self.BatchNorm_0(x)
+            if self.relu:
+                x = F.relu(x)
+        # int8 storage site: uint8 after the ReLU, int8 without it
+        return qstore(self, x, "out", signed=not self.relu)
 
 
 def pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -329,16 +346,21 @@ class ConvBNReLU(nn.Module):
     def forward(self, x: Optional[torch.Tensor] = None, *,
                 up_pair=None) -> torch.Tensor:
         k, b = self.Conv_0.kernel, self.Conv_0.bias
-        if self.fold_bn:
+        if self.fold_bn and convs_on_kernels():
             if up_pair is not None:
                 x2, x1 = up_pair
-                return up_concat_conv(x2.contiguous(), x1.contiguous(), k, b)
-            return conv3x3_gemm(x.contiguous(), k, b, relu=True)
+                y = up_concat_conv(x2.contiguous(), x1.contiguous(), k, b)
+            else:
+                y = conv3x3_gemm(x.contiguous(), k, b, relu=True)
+            return qstore(self, y, "out")
         if up_pair is not None:
             x2, x1 = up_pair
             x1 = pad_to_match(upsample2x_bilinear_align_corners(x1), x2)
             x = torch.cat([x2, x1], dim=-1)
-        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = self.Conv_0(x)
+        if not self.fold_bn:
+            y = self.BatchNorm_0(y)
+        return qstore(self, F.relu(y), "out")
 
 
 class DoubleConv(nn.Module):
@@ -388,10 +410,14 @@ class DoubleConv(nn.Module):
             x2, x1 = up_pair
             up = upsample2x_bilinear_align_corners(x1, self.upsample_impl)
             x, up_pair = torch.cat([x2, up], dim=-1), None
-        if self.conv_impl == "pair":
+        # one pair launch, unless the convs may not take their kernels or an
+        # active int8 storage site lies between them (ops/quant.py)
+        if (self.conv_impl == "pair" and convs_on_kernels()
+                and not site_active(self.ConvBNReLU_0, "out")):
             c1, c2 = self.ConvBNReLU_0.Conv_0, self.ConvBNReLU_1.Conv_0
-            return conv3x3_pair_gemm(x.contiguous(), c1.kernel, c1.bias,
-                                     c2.kernel, c2.bias)
+            y = conv3x3_pair_gemm(x.contiguous(), c1.kernel, c1.bias,
+                                  c2.kernel, c2.bias)
+            return qstore(self.ConvBNReLU_1, y, "out")
         x = call_maybe_remat(self.fine_remat, self.ConvBNReLU_0, x, up_pair=up_pair)
         return call_maybe_remat(self.fine_remat, self.ConvBNReLU_1, x)
 

@@ -123,14 +123,25 @@ def _spatial_hw(x: torch.Tensor):
     return (x.shape[1], x.shape[2]) if x.ndim == 4 else (x.shape[0], x.shape[1])
 
 
-def _apply_separable(x: torch.Tensor, ah: np.ndarray,
-                     aw: np.ndarray) -> torch.Tensor:
+@functools.lru_cache(maxsize=512)
+def _matrix_on(cubic: bool, n_in: int, n_out: int, align_corners: bool,
+               dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A resize matrix rounded to ``dtype``, as float32 on ``device``, made
+    once: a forward then copies nothing to the device for it."""
+    a = (_cubic_matrix if cubic else _linear_matrix)(n_in, n_out, align_corners)
+    with torch.inference_mode(False):
+        return torch.from_numpy(a).to(device, dtype).float()
+
+
+def _apply_separable(x: torch.Tensor, cubic: bool, out_hw,
+                     align_corners: bool) -> torch.Tensor:
     """Rows, then columns, of a floating NHWC or HWC tensor; the matrices are
     rounded to x's dtype, the products summed in float32, and the row pass
     rounded to x's dtype before the column pass."""
     dtype = x.dtype
-    ah_t = torch.from_numpy(ah).to(x.device, dtype).float()
-    aw_t = torch.from_numpy(aw).to(x.device, dtype).float()
+    (h_in, w_in), (h_out, w_out) = _spatial_hw(x), (int(out_hw[0]), int(out_hw[1]))
+    ah_t = _matrix_on(cubic, h_in, h_out, align_corners, dtype, x.device)
+    aw_t = _matrix_on(cubic, w_in, w_out, align_corners, dtype, x.device)
     lead = "b" if x.ndim == 4 else ""
     if x.ndim not in (3, 4):
         raise ValueError(f"rank {x.ndim} not supported")
@@ -140,18 +151,12 @@ def _apply_separable(x: torch.Tensor, ah: np.ndarray,
 
 def resize_bilinear(x: torch.Tensor, out_hw,
                     align_corners: bool = False) -> torch.Tensor:
-    h_out, w_out = int(out_hw[0]), int(out_hw[1])
-    h_in, w_in = _spatial_hw(x)
-    return _apply_separable(x, _linear_matrix(h_in, h_out, align_corners),
-                            _linear_matrix(w_in, w_out, align_corners))
+    return _apply_separable(x, False, out_hw, align_corners)
 
 
 def resize_bicubic(x: torch.Tensor, out_hw,
                    align_corners: bool = False) -> torch.Tensor:
-    h_out, w_out = int(out_hw[0]), int(out_hw[1])
-    h_in, w_in = _spatial_hw(x)
-    return _apply_separable(x, _cubic_matrix(h_in, h_out, align_corners),
-                            _cubic_matrix(w_in, w_out, align_corners))
+    return _apply_separable(x, True, out_hw, align_corners)
 
 
 def resize_nearest(x: torch.Tensor, out_hw, mode: str = "torch") -> torch.Tensor:

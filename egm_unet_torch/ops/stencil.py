@@ -9,6 +9,8 @@ reference's edge-aware training losses (``losses.py``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -16,6 +18,14 @@ LAPLACE4 = ((0.0, 1.0, 0.0), (1.0, -4.0, 1.0), (0.0, 1.0, 0.0))
 LAPLACE8 = ((-1.0, -1.0, -1.0), (-1.0, 8.0, -1.0), (-1.0, -1.0, -1.0))
 SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
 SOBEL_Y = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _weight(kernel, device: torch.device) -> torch.Tensor:
+    """The stencil as a (1, 1, 3, 3) float32 tensor on ``device``, made once:
+    a train step then copies nothing to the device for it."""
+    with torch.inference_mode(False):
+        return torch.tensor(kernel, dtype=torch.float32, device=device)[None, None]
 
 
 def stencil2d(x: torch.Tensor, kernel) -> torch.Tensor:
@@ -31,6 +41,5 @@ def stencil2d(x: torch.Tensor, kernel) -> torch.Tensor:
         x = x[None]
     elif x.ndim != 3:
         raise ValueError(f"stencil2d expects 2-D to 4-D input, got {tuple(shape)}")
-    w = torch.tensor(kernel, dtype=torch.float32, device=x.device)[None, None]
-    y = F.conv2d(x.float()[:, None], w, padding=1)[:, 0]
+    y = F.conv2d(x.float()[:, None], _weight(kernel, x.device), padding=1)[:, 0]
     return y.reshape(shape)

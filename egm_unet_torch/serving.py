@@ -6,12 +6,19 @@ fixed-size batches whose free slots hold zero images, run through the
 BN-folded model, and their argmax masks resized back to each image's
 original size.  In ``bfloat16`` the weights are cast to bfloat16, as the JAX
 package's deployment cast does.
+
+``quant`` (``"int8df"``, ``"int8"``, ``"int8full"``; ``ops/quant.py``):
+the scales are calibrated on the first bucket batch the predictor runs,
+then the mode is held around every forward.  The storage sites default to
+``SHIP_QSTORE_SITES`` (``qstore_sites``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import time
 from typing import Any, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -20,6 +27,8 @@ import torch
 from egm_unet_torch.data.transforms import normalize, resize_short_side
 from egm_unet_torch.device import resolve_device
 from egm_unet_torch.models.registry import create_model
+from egm_unet_torch.ops.quant import (QUANT_MODES, SHIP_QSTORE_SITES, Quantizer,
+                                      calibrate_quant_scales)
 from egm_unet_torch.ops.resize import resize_bilinear
 from egm_unet_torch.utils.checkpoint import folded_state_dict
 from egm_unet_torch.utils.from_flax import load_flax_variables
@@ -46,6 +55,10 @@ class PredictorConfig:
     # "gemm" | "pair", and "matmul" | "fused"
     conv_impl: str = "gemm"
     upsample_impl: str = "matmul"
+    # None | "int8" | "int8df" | "int8full" (serving-only, off-parity)
+    quant: Optional[str] = None
+    # active int8 storage sites (ops/quant.py); None: SHIP_QSTORE_SITES
+    qstore_sites: Optional[str] = None
 
 
 class Predictor:
@@ -58,7 +71,12 @@ class Predictor:
                  config: PredictorConfig = PredictorConfig(), *, device=None,
                  generator: Optional[torch.Generator] = None):
         self.device = resolve_device(device)
+        if config.quant not in (None,) + QUANT_MODES:
+            raise ValueError(f"unknown quant {config.quant!r}; choose from "
+                             f"{list(QUANT_MODES)}")
         self.cfg = config
+        self.quantizer: Optional[Quantizer] = None
+        self.calibration_s: Optional[float] = None
         self.dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
         kw = dict(num_classes=config.num_classes, base_c=config.base_c,
                   conv_impl=config.conv_impl, upsample_impl=config.upsample_impl)
@@ -94,10 +112,22 @@ class Predictor:
         resized, _ = resize_short_side(image, None, self.cfg.base_size)
         return normalize(resized)
 
+    def calibrate(self, batch: torch.Tensor) -> None:
+        """int8 scales from ``batch`` (``ops/quant.py::calibrate_quant_scales``);
+        ``forward`` calls it on its first batch when ``quant`` is set."""
+        t0 = time.perf_counter()
+        scales = calibrate_quant_scales(self.model, [batch])
+        sites = self.cfg.qstore_sites or SHIP_QSTORE_SITES
+        self.quantizer = Quantizer(self.model, self.cfg.quant, scales, sites)
+        self.calibration_s = time.perf_counter() - t0
+
     @torch.inference_mode()
     def forward(self, batch: torch.Tensor) -> torch.Tensor:
         """NHWC batch (working dtype, on the device) -> argmax masks."""
-        return self.model(batch)["out"].argmax(dim=-1)
+        if self.cfg.quant and self.quantizer is None:
+            self.calibrate(batch)
+        with (self.quantizer.active() if self.quantizer else contextlib.nullcontext()):
+            return self.model(batch)["out"].argmax(dim=-1)
 
     @torch.inference_mode()
     def predict(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:

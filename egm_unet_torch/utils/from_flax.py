@@ -16,6 +16,11 @@ A tree with ``batch_stats`` loads into the training graph (``fold_bn=False``)
 as it is, and into a folded graph after ``models/fold_bn.py`` folds it.  A
 leaf that is missing, consumed twice, of the wrong shape or left unconsumed
 raises.
+
+The int8 scales of the JAX package's ``quant_scales`` collection are not
+part of a ``state_dict``: ``quant_scales_from_flax`` flattens that
+collection into the port's mapping (flax path -> float, ``ops/quant.py``)
+and ``flax_quant_scales`` nests the mapping back.
 """
 
 from __future__ import annotations
@@ -107,4 +112,23 @@ def flax_from_state_dict(model: nn.Module, state: Mapping[str, torch.Tensor] = N
         for p in parents:
             node = node.setdefault(p, {})
         node[name] = value.detach().float().cpu().numpy().copy()
+    return tree
+
+
+def quant_scales_from_flax(tree: Mapping[str, Any]) -> Dict[str, float]:
+    """A flax ``quant_scales`` collection as the port's flat scale mapping:
+    ``{"down1/conv1/Conv_0/act_scale": 0.0123, ...}``, float32 values."""
+    return {path: float(np.float32(np.asarray(v))) for path, v in _flatten(tree).items()}
+
+
+def flax_quant_scales(scales: Mapping[str, float]) -> Dict[str, Any]:
+    """The inverse: the port's scale mapping as a nested flax collection of
+    float32 numpy scalars."""
+    tree: Dict[str, Any] = {}
+    for path, value in scales.items():
+        *parents, name = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = np.asarray(value, np.float32)
     return tree

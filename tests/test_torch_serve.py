@@ -251,7 +251,11 @@ def test_predictor_failure_reaches_every_waiter():
 def test_parsers_carry_the_route_flags():
     args = parse_args(["--conv-impl", "pair", "--upsample-impl", "fused"])
     assert (args.conv_impl, args.upsample_impl, args.device) == ("pair", "fused", None)
-    assert not hasattr(args, "quant")  # waits for ops/quant.py
+    assert args.quant is None  # full precision unless asked
+    assert [parse_args(["--quant", q]).quant for q in ("int8", "int8df", "int8full")] \
+        == ["int8", "int8df", "int8full"]  # the JAX CLI's choices
+    with pytest.raises(SystemExit):
+        parse_args(["--quant", "int4"])
     args = parse_args([])
     assert (args.conv_impl, args.upsample_impl, args.batch_size) == ("gemm", "matmul", 128)
     pargs = predict_parse_args(["--conv-impl", "pair", "--device", "cpu"])

@@ -4,7 +4,8 @@
 format, checkpoints at the reference's cadence, ``--resume`` continuing the
 step count and the learning rate, and the checkpoint served folded by
 ``cli/predict.py --weights`` and ``serving.Predictor.from_checkpoint``; the
-JAX CLI's flags whose modules are not ported exit non-zero, and without
+JAX CLI's flags whose modules are not ported exit non-zero (the device
+dataset's flags only beside --steps-per-dispatch > 1), and without
 ``--device`` the CLI refuses a machine with no GPU."""
 
 import contextlib
@@ -133,6 +134,15 @@ def test_predict_cli_serves_the_folded_checkpoint(trained, tmp_path):
                                        (["--mesh-data", "2"], "item 9"),
                                        (["--mesh-spatial", "2"], "item 9")])
 def test_unported_flags_exit_non_zero(flag, item):
+    """--mesh-* (multi-GPU, ROADMAP item 9) exit non-zero naming their item.
+    The GPU-resident dataset's flags (item 6) are ported: accepted, and
+    refused only beside --steps-per-dispatch > 1."""
+    if item == "item 6":
+        train_cli.refuse_unported(train_cli.parse_args(ARGS + flag))
+        with pytest.raises(SystemExit) as exc:
+            train_cli.main(ARGS + flag + ["--steps-per-dispatch", "2"])
+        assert exc.value.code != 0 and "--steps-per-dispatch" in str(exc.value.code)
+        return
     with pytest.raises(SystemExit) as exc:
         train_cli.main(ARGS + flag)
     assert exc.value.code != 0 and item in str(exc.value.code)

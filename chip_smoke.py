@@ -32,9 +32,21 @@ shapes the main paths give it, and drives the main paths at full width:
   ``cli/serve.py --quant int8df`` answering a burst of 4 PNG requests
   (``serve_quant``).
 
+- the text branch's training, float32 with TF32 off as the JAX CLIs run it:
+  ``cli/train_clipseg.py`` at the reference's configuration (CLIPSeg rd64
+  over a frozen ViT-B/16 Long-CLIP tower, batch 64 at 352 px, 128 synthetic
+  PhraseCut samples, 3 epochs: 6 steps; K6 10 times a step and a probe),
+  ``cli/train_longclip.py`` on a random ViT-B/16 Long-CLIP (batch 32, a
+  fixed pool of 64 synthetic triples, 10 steps; K6 once a step, forward,
+  with its closed-form backward), each with one more step under the
+  profiler; K6 in float32 at both shapes and the backward's time
+  (``text_kernel_records``); and an RN50-width CLIP's ``encode_image`` at
+  batch 32 (``clip_resnet``, no hand-written kernel).
+
 It then checks the card against the CPU on small inputs, for the UNets on
-every route and for a small CLIPSeg, and for one training step; and that
-K1..K5 refuse to run inside an autograd graph.
+every route and for a small CLIPSeg, for one training step, for one step of
+each text trainer and K6's backward (``text_train_card_vs_cpu``) and for a
+small RN CLIP; and that K1..K5 refuse to run inside an autograd graph.
 
 ``conv3x3_gemm``, ``conv3x3_pair_gemm``, ``up_concat_conv`` and
 ``csa_attention`` have two hand-written kernels each, chosen by dtype:
@@ -91,6 +103,9 @@ from PIL import Image
 from egm_unet_torch.cli import predict as predict_cli
 from egm_unet_torch.cli import serve as serve_cli
 from egm_unet_torch.cli import train as train_cli
+from egm_unet_torch.cli import train_clipseg as train_clipseg_cli
+from egm_unet_torch.cli import train_longclip as train_longclip_cli
+from egm_unet_torch.cli.eval_clipseg import tiny_clip_config
 from egm_unet_torch.cli.eval_clipseg import fused_masks
 from egm_unet_torch.data.device_aug import (augment_with_params, draw_params,
                                             source_coords, to_unit)
@@ -102,8 +117,11 @@ from egm_unet_torch.data.synthetic import SyntheticTPDataset, synthetic_tp_sampl
 from egm_unet_torch.data.transforms import (TP_MEAN, TP_STD, TrainTransform,
                                             normalize, resize_short_side)
 from egm_unet_torch.engine import create_train_state, make_train_step, warmup_poly_schedule
+from egm_unet_torch.engine.clipseg_train import create_clipseg_state, make_clipseg_train_step
+from egm_unet_torch.engine.longclip_train import (MAX_LOGIT_SCALE, create_longclip_state,
+                                                  make_longclip_train_step)
 from egm_unet_torch.models import create_model
-from egm_unet_torch.models.clip.model import VIT_B16, CLIPConfig
+from egm_unet_torch.models.clip.model import CLIP, VIT_B16, CLIPConfig
 from egm_unet_torch.models.clipseg import CLIPDensePredT
 from egm_unet_torch.models.registry import init_weights
 from egm_unet_torch.nn.attention import MCALayer
@@ -1698,6 +1716,396 @@ def phase_serve_quant(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------- the text branch's training
+
+# cli/train_clipseg.py at the reference's configuration (ViT-B/16, rd64,
+# extract (3, 6, 9), batch 64 at 352 px), 128 synthetic samples, 3 epochs:
+# 2 steps an epoch; cli/train_longclip.py on a random ViT-B/16 tower (224 px,
+# 248-token texts), batch 32, a fixed pool of 64 triples
+SEG_BATCH, SEG_N, SEG_EPOCHS = 64, 128, 3
+LONGCLIP_BATCH, LONGCLIP_POOL, LONGCLIP_STEPS = 32, 64, 10
+CSA_SEG_TRAIN_SHAPE = (SEG_BATCH, (CLIP_SIZE // 16) ** 2 + 1, 768, 12)
+CSA_LONGCLIP_SHAPE = (LONGCLIP_BATCH, (224 // 16) ** 2 + 1, 768, 12)
+# K6 launches: 10 per CLIPSeg step and probe (tower blocks 0..9, under
+# no_grad); 1 per Long-CLIP step (encode_image's last block, forward; the
+# backward is csa_backward, plain tensor code)
+PER_CLIPSEG_TRAIN_FORWARD = per_forward(csa_attention=10)
+PER_LONGCLIP_STEP = per_forward(csa_attention=1)
+
+
+def timed_steps(module, maker: str, times: list) -> None:
+    """Replace ``module.<maker>`` by one whose steps are bracketed by CUDA
+    events (synchronized after each step); their times go to ``times``."""
+    make = getattr(module, maker)
+
+    def make_timed(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*a)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            return out
+        return timed
+    setattr(module, maker, make_timed)
+
+
+def snapshot_at(module, creator: str, snap: dict, take) -> None:
+    """Replace ``module.<creator>`` (a train-state factory) by one that puts
+    ``take(model)`` in ``snap["before"]`` first: the weights as the CLI
+    built them, before any step."""
+    create = getattr(module, creator)
+
+    def creating(model, **kwargs):
+        snap["before"] = take(model)
+        return create(model, **kwargs)
+    setattr(module, creator, creating)
+
+
+def text_kernel_records(records: list) -> None:
+    """K6 in float32 at the two training paths' shapes, on the in_proj views
+    (the CUDA-core kernel: the CLIs train in float32), with the bound and the
+    two-SDPA yardstick; then the closed-form backward's time per call at
+    Long-CLIP's shape, float32 and bf16, beside autograd through the plain
+    version (forward and backward)."""
+    for site, shape in (("train_clipseg: clip.visual.resblock0..9", CSA_SEG_TRAIN_SHAPE),
+                        ("train_longclip: clip.visual.resblock11", CSA_LONGCLIP_SHAPE)):
+        records.append(kernel_record(site, csa_call(shape, torch.float32, views=True), 5))
+        check(records[-1]["variant"] == "cuda_cores_f32",
+              f"K6 float32 at {shape}: variant {records[-1]['variant']}")
+        torch.cuda.empty_cache()
+    b, s_, d, h = CSA_LONGCLIP_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(SEED + 5)
+        q, k, v, g = [(torch.randn(b, s_, d, generator=gen) * sc).to(dtype).cuda()
+                      for sc in (1.5, 1.0, 1.0, 1.0)]
+        q, k, v = torch.cat([q, k, v], dim=-1).chunk(3, dim=-1)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+        def plain_grads():
+            with torch.enable_grad():
+                return torch.autograd.grad(csa.csa_plain(*leaves, h), leaves, g)
+        records.append({"phase": "csa_backward", "name": "csa_attention",
+                        "shape": [b, s_, d], "heads": h, "dtype": str(dtype).split(".")[1],
+                        "layout": "in_proj_views",
+                        "ms": time_ms(lambda: csa.csa_backward(q, k, v, g, h), reps=10),
+                        "plain_autograd_ms": time_ms(plain_grads, reps=5)})
+        emit(records[-1])
+    torch.cuda.empty_cache()
+
+
+def phase_train_clipseg(dev) -> dict:
+    """``cli/train_clipseg.py`` as a user runs it on the card, at the
+    reference's width: ms per step by CUDA events, img/s, peak memory, K6's
+    launches (10 per step, 10 per epoch's fgIoU probe), the loss of every
+    step and the fgIoU of every epoch; fails unless the losses are finite,
+    the tower is bit-identical before and after, the decoder moved and
+    ``meta.json`` was written."""
+    tmp = tempfile.TemporaryDirectory(prefix="egm_train_clipseg_")
+    times, snap = [], {}
+    timed_steps(train_clipseg_cli, "make_clipseg_train_step", times)
+    snapshot_at(train_clipseg_cli, "create_clipseg_state", snap,
+                lambda m: {k: t.detach().clone() for k, t in m.state_dict().items()})
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        run = train_clipseg_cli.main([
+            "--synthetic", "--synthetic-n", str(SEG_N), "--epochs", str(SEG_EPOCHS),
+            "--batch-size", str(SEG_BATCH), "--image-size", str(CLIP_SIZE),
+            "--print-freq", "1", "--save-dir", str(Path(tmp.name) / "save")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    train_clipseg_cli.make_clipseg_train_step = make_clipseg_train_step
+    train_clipseg_cli.create_clipseg_state = create_clipseg_state
+    (OUT_DIR / "train_clipseg.log").write_text(printed.getvalue())
+    steps = SEG_EPOCHS * (SEG_N // SEG_BATCH)
+    after = run["state"].model.state_dict()
+    tower_same = all(torch.equal(after[k], t) for k, t in snap["before"].items()
+                     if k.startswith("clip."))
+    decoder_moved = sum(not torch.equal(after[k], t) for k, t in snap["before"].items()
+                        if not k.startswith("clip."))
+    meta = (Path(run["save_dir"]) / "meta.json").is_file()
+    ms = statistics.median(times[1:])
+    want = {k: n * (steps + SEG_EPOCHS) for k, n in PER_CLIPSEG_TRAIN_FORWARD.items()}
+    rec = {"phase": "train_clipseg", "model": "CLIPDensePredT(VIT_B16, rd64, extract 3/6/9)",
+           "dtype": "float32", "tf32": False, "batch": SEG_BATCH, "image_size": CLIP_SIZE,
+           "samples": SEG_N, "epochs": SEG_EPOCHS, "steps": len(times),
+           "ms_per_step": ms, "ms_per_step_runs": times,
+           "img_per_s": SEG_BATCH / ms * 1e3, "wall_s": wall, "peak_mem_bytes": peak,
+           "peak_mem_gib": peak / 2 ** 30, "losses": run["losses"], "fgiou": run["fgiou"],
+           "launches": launches, "launches_per_step_and_probe": 10,
+           "tower_bit_identical": tower_same, "decoder_leaves_moved": decoder_moved,
+           "meta_json": meta, "card": dev["nvidia_smi"]}
+    emit(rec)
+    # one more step of the trained state under the profiler, on a seeded batch
+    gen = torch.Generator().manual_seed(SEED + 6)
+    batch = (torch.randn(SEG_BATCH, CLIP_SIZE, CLIP_SIZE, 3, generator=gen).cuda(),
+             (torch.rand(SEG_BATCH, CLIP_SIZE, CLIP_SIZE, generator=gen) < 0.3).float().cuda(),
+             prompt_tokens((12,) * SEG_BATCH).cuda())
+    step = make_clipseg_train_step()
+    phase_profile("train_clipseg_profile", lambda: step(run["state"], *batch),
+                  "train_clipseg_profile.txt", {"csa_attention": "csa_kernel"})
+    del run, after, snap, batch
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    check(len(times) == steps and len(rec["losses"]) == steps,
+          f"train_clipseg: {len(times)} steps timed, {len(rec['losses'])} losses, not {steps}")
+    check(all(np.isfinite(rec["losses"])), f"train_clipseg: losses {rec['losses']}")
+    check(len(rec["fgiou"]) == SEG_EPOCHS, f"train_clipseg: fgIoU {rec['fgiou']}")
+    check(tower_same, "train_clipseg: the frozen tower moved")
+    check(decoder_moved > 0, "train_clipseg: no decoder leaf moved")
+    check(meta, "train_clipseg: meta.json was not written")
+    check(launches == want, f"train_clipseg launches {launches} != {want}")
+    return launches
+
+
+def phase_train_longclip(dev) -> dict:
+    """``cli/train_longclip.py`` on a random ViT-B/16 Long-CLIP at full
+    width: ms per step by CUDA events, img/s, peak memory, K6's launches (1
+    per step: encode_image's last block, forward; the backward is the closed
+    form), the loss of every step; fails unless the losses are finite,
+    ``positional_embedding`` is bit-identical and ``logit_scale`` <= ln 100."""
+    tmp = tempfile.TemporaryDirectory(prefix="egm_train_longclip_")
+    times, snap = [], {}
+    timed_steps(train_longclip_cli, "make_longclip_train_step", times)
+    snapshot_at(train_longclip_cli, "create_longclip_state", snap,
+                lambda m: m.positional_embedding.detach().clone())
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        run = train_longclip_cli.main([
+            "--synthetic", "--synthetic-fixed", str(LONGCLIP_POOL),
+            "--batch-size", str(LONGCLIP_BATCH), "--steps", str(LONGCLIP_STEPS),
+            "--warmup-steps", "2", "--print-freq", "1",
+            "--clip-weights", str(Path(tmp.name) / "none.pt"),
+            "--save-dir", str(Path(tmp.name) / "save")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    train_longclip_cli.make_longclip_train_step = make_longclip_train_step
+    train_longclip_cli.create_longclip_state = create_longclip_state
+    (OUT_DIR / "train_longclip.log").write_text(printed.getvalue())
+    model = run["state"].model
+    pe_same = torch.equal(model.positional_embedding, snap["before"])
+    scale = model.logit_scale.item()
+    ms = statistics.median(times[1:])
+    want = {k: n * LONGCLIP_STEPS for k, n in PER_LONGCLIP_STEP.items()}
+    rec = {"phase": "train_longclip", "model": "CLIP(VIT_B16), random tower",
+           "dtype": "float32", "tf32": False, "batch": LONGCLIP_BATCH,
+           "image_size": VIT_B16.image_resolution, "context": VIT_B16.context_length,
+           "pool": LONGCLIP_POOL, "steps": len(times), "warmup_steps": 2,
+           "ms_per_step": ms, "ms_per_step_runs": times,
+           "img_per_s": LONGCLIP_BATCH / ms * 1e3, "wall_s": wall, "peak_mem_bytes": peak,
+           "peak_mem_gib": peak / 2 ** 30, "losses": run["losses"], "logit_scale": scale,
+           "positional_embedding_bit_identical": pe_same, "launches": launches,
+           "card": dev["nvidia_smi"]}
+    emit(rec)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    res, ctx = VIT_B16.image_resolution, VIT_B16.context_length
+    batch = (torch.randn(LONGCLIP_BATCH, res, res, 3, generator=gen).cuda(),
+             *(torch.randint(1, VIT_B16.vocab_size - 1, (LONGCLIP_BATCH, ctx),
+                             generator=gen).cuda() for _ in range(2)))
+    step = make_longclip_train_step()
+    phase_profile("train_longclip_profile", lambda: step(run["state"], *batch),
+                  "train_longclip_profile.txt", {"csa_attention": "csa_kernel"})
+    del run, model, snap, batch
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    check(len(times) == LONGCLIP_STEPS, f"train_longclip: {len(times)} steps timed")
+    check(all(np.isfinite(rec["losses"])), f"train_longclip: losses {rec['losses']}")
+    check(pe_same, "train_longclip: positional_embedding moved")
+    check(scale <= MAX_LOGIT_SCALE, f"train_longclip: logit_scale {scale} > ln 100")
+    check(launches == want, f"train_longclip launches {launches} != {want}")
+    return launches
+
+
+def leaf_ratio(card: dict, cpu: dict, rel: float) -> tuple:
+    """The worst ``|card - cpu| / (rel * max|cpu leaf| + 1e-6)`` and its leaf."""
+    worst = (0.0, "")
+    for k, c in cpu.items():
+        tol = rel * c.abs().max().item() + 1e-6
+        worst = max(worst, ((card[k].cpu() - c).abs().max().item() / tol, k))
+    return worst
+
+
+def phase_text_train_card_vs_cpu() -> None:
+    """One CLIPSeg step and one Long-CLIP step of the ``--tiny-clip``
+    configurations from the same weights and batch on the card (K6) and on
+    the CPU (its plain version), float32, TF32 off: the loss within 1e-5
+    relative, the gradients within 1e-3 of each leaf's largest + 1e-6, the
+    updated parameters within 1e-4 of each leaf's largest + 1e-6 at a rate
+    of 1e-6.  At CLIPSeg's 1e-3 the updated parameters are recorded, not
+    held: AdamW's first step moves each element by about the rate whatever
+    its gradient's size, so an element whose gradient is within float32
+    noise of zero (every attention's key bias: its exact gradient is 0) moves
+    by +-lr on one device and -+lr on the other, 20x that tolerance, which a
+    change of the CPU's thread count alone reproduces.  Then K6's closed-form
+    backward on the card at Long-CLIP's shape against autograd through
+    ``csa_plain`` on the card: float32 within 2e-4 of the largest gradient
+    plus twice autograd's own distance from the float64 gradient (the closed
+    form in float64), bf16 within one bf16 step of the largest."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cfg = tiny_clip_config(64)
+    seg_batch = (torch.randn(4, 64, 64, 3, generator=gen),
+                 (torch.rand(4, 64, 64, generator=gen) < 0.3).float(),
+                 torch.randint(1, cfg.vocab_size - 1, (4, cfg.context_length), generator=gen))
+    seg_batch[2][:, 6:] = 0
+    seg_batch[2][:, 6] = cfg.vocab_size - 1
+    lc_cfg = tiny_clip_config(64)  # cli/train_longclip.py --tiny-clip
+    lc_batch = (torch.randn(8, 64, 64, 3, generator=gen),
+                torch.randint(1, lc_cfg.vocab_size - 1, (8, lc_cfg.context_length), generator=gen),
+                torch.randint(1, lc_cfg.vocab_size - 1, (8, lc_cfg.context_length), generator=gen))
+
+    def clipseg_step(device, lr):
+        model = CLIPDensePredT(clip_cfg=cfg, reduce_dim=64, extract_layers=(0, 1))
+        state = create_clipseg_state(init_weights(model, torch.Generator().manual_seed(SEED))
+                                     .to(device), lr=lr)
+        return make_clipseg_train_step()(state, *(t.to(device) for t in seg_batch))
+
+    def longclip_step(device, lr):
+        model = init_weights(CLIP(lc_cfg), torch.Generator().manual_seed(SEED)).to(device)
+        state = create_longclip_state(model, lr=lr, warmup_steps=0, total_steps=10)
+        return make_longclip_train_step()(state, *(t.to(device) for t in lc_batch))
+
+    out = {}
+    for name, step, lrs in (("clipseg", clipseg_step, (1e-6, 1e-3)),
+                            ("longclip", longclip_step, (1e-6,))):
+        for lr in lrs:
+            res = {}
+            for device in ("cpu", "cuda"):
+                reset_launch_counts()
+                state, aux = step(device, lr)
+                res[device] = {
+                    "loss": aux["loss"].item(), "launches": launch_counts()["csa_attention"],
+                    "grads": {k: p.grad.detach().cpu() for k, p in
+                              state.model.named_parameters() if p.grad is not None},
+                    "params": {k: t.detach().cpu() for k, t in state.model.state_dict().items()}}
+            cpu, card = res["cpu"], res["cuda"]
+            g, p = leaf_ratio(card["grads"], cpu["grads"], 1e-3), \
+                leaf_ratio(card["params"], cpu["params"], 1e-4)
+            out[f"{name}_lr{lr:g}"] = {
+                "loss_cpu": cpu["loss"], "loss_card": card["loss"],
+                "loss_rel_diff": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+                "grads_worst_over_tol": g[0], "grads_worst_leaf": g[1],
+                "params_worst_over_tol": p[0], "params_worst_leaf": p[1],
+                "params_held": lr == 1e-6, "k6_launches_card": card["launches"],
+                "k6_launches_cpu": cpu["launches"]}
+
+    b, s_, d, h = CSA_LONGCLIP_SHAPE
+    backward = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(SEED + 8)
+        q, k, v, g = [(torch.randn(b, s_, d, generator=gen) * sc).to(dtype).cuda()
+                      for sc in (1.5, 1.0, 1.0, 1.0)]
+        q, k, v = torch.cat([q, k, v], dim=-1).chunk(3, dim=-1)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            want = torch.autograd.grad(csa.csa_plain(*leaves, h), leaves, g)
+        got = csa.csa_backward(q, k, v, g, h)
+        exact = csa.csa_backward(q.double(), k.double(), v.double(), g.double(), h)
+        worst = 0.0
+        for a, r, e in zip(got, want, exact):
+            r = r.double()
+            tol = (2.0 ** -7 * r.abs().max().item() if dtype == torch.bfloat16
+                   else 2e-4 * r.abs().max().item() + 2 * (r - e).abs().max().item())
+            worst = max(worst, (a.double() - r).abs().max().item() / tol)
+        backward[str(dtype).split(".")[1]] = worst
+        check(all(bool(torch.isfinite(a).all()) for a in got), "csa_backward not finite")
+        del q, k, v, g, leaves, want, got, exact
+    torch.cuda.empty_cache()
+    rec = {"phase": "text_train_card_vs_cpu", "tf32": False, "steps": out,
+           "csa_backward_shape": list(CSA_LONGCLIP_SHAPE),
+           "csa_backward_worst_over_tol": backward}
+    emit(rec)
+    for name, r in out.items():
+        check(r["loss_rel_diff"] <= 1e-5, f"{name}: loss differs by {r['loss_rel_diff']}")
+        check(r["grads_worst_over_tol"] <= 1.0,
+              f"{name}: gradient {r['grads_worst_leaf']} at {r['grads_worst_over_tol']} x tol")
+        check(not r["params_held"] or r["params_worst_over_tol"] <= 1.0,
+              f"{name}: parameter {r['params_worst_leaf']} at {r['params_worst_over_tol']} x tol")
+        check(r["k6_launches_card"] >= 1 and r["k6_launches_cpu"] == 0,
+              f"{name}: K6 launches card {r['k6_launches_card']}, cpu {r['k6_launches_cpu']}")
+    for dt, worst in backward.items():
+        check(worst <= 1.0, f"csa_backward {dt}: {worst} x tol")
+
+
+RN50 = CLIPConfig(embed_dim=1024, image_resolution=224, vision_layers=(3, 4, 6, 3),
+                  vision_width=64, vision_patch_size=0, context_length=77,
+                  transformer_width=512, transformer_heads=8, transformer_layers=12,
+                  long_clip=False)
+
+
+def phase_clip_resnet(dev) -> dict:
+    """The ModifiedResNet tower: an RN50-width CLIP's ``encode_image`` at
+    batch 32, 224 px, float32, in ms per batch (no hand-written kernel runs
+    here: convs are cuDNN's, the attention pool plain attention); then a small
+    RN CLIP's logits and image features on the card against the CPU within
+    1e-3 of their range."""
+    model = init_weights(CLIP(RN50), torch.Generator().manual_seed(SEED)).cuda().eval()
+    gen = torch.Generator().manual_seed(SEED + 9)
+    x = torch.randn(32, 224, 224, 3, generator=gen).cuda()
+    reset_launch_counts()
+    with torch.inference_mode():
+        feats = model.encode_image(x)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        ms = time_ms(lambda: model.encode_image(x), reps=10)
+    check(tuple(feats.shape) == (32, 1024) and bool(torch.isfinite(feats).all()),
+          f"RN50 features {tuple(feats.shape)} not finite [32, 1024]")
+    del model, x, feats
+    torch.cuda.empty_cache()
+
+    small = CLIPConfig(embed_dim=32, image_resolution=64, vision_layers=(1, 2, 1, 1),
+                       vision_width=16, vision_patch_size=0, context_length=16,
+                       vocab_size=64, transformer_width=64, transformer_heads=1,
+                       transformer_layers=1, long_clip=True)
+    cpu_model = init_weights(CLIP(small), torch.Generator().manual_seed(SEED)).eval()
+    with torch.no_grad():  # randomized BatchNorm statistics
+        for name, p in cpu_model.named_parameters():
+            if name.endswith(".mean"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+            elif name.endswith(".var"):
+                p.copy_(torch.rand(p.shape, generator=gen) + 0.5)
+    img = torch.randn(4, 64, 64, 3, generator=gen)
+    tok = torch.randint(1, 60, (4, 16), generator=gen)
+    tok[:, 9] = 63
+    with torch.inference_mode():
+        cpu_logits, _ = cpu_model(img, tok)
+        cpu_feats = cpu_model.encode_image(img)
+        card_model = cpu_model.cuda()
+        card_logits, _ = card_model(img.cuda(), tok.cuda())
+        card_feats = card_model.encode_image(img.cuda())
+    diffs = {}
+    for key, a, c in (("logits", card_logits, cpu_logits), ("image_features", card_feats,
+                                                              cpu_feats)):
+        scale = (c.max() - c.min()).item()
+        diffs[key] = {"max_abs_diff": (a.cpu() - c).abs().max().item(), "range": scale,
+                      "tol": 1e-3 * scale}
+    rec = {"phase": "clip_resnet", "config": "RN50 widths: layers (3, 4, 6, 3), width 64, "
+           "embed 1024, 224 px", "dtype": "float32", "tf32": False, "batch": 32,
+           "encode_image_ms_per_batch": ms, "img_per_s": 32 / ms * 1e3, "launches": launches,
+           "kernels": "none: cuDNN convs, eval BatchNorm, plain attention pool",
+           "small_card_vs_cpu": diffs, "card": dev["nvidia_smi"]}
+    emit(rec)
+    check(not any(launches.values()), f"clip_resnet launched {launches}")
+    for key, r in diffs.items():
+        check(r["max_abs_diff"] <= r["tol"], f"clip_resnet {key}: card vs CPU {r}")
+    return launches
+
+
 def summary(records, main_paths: dict) -> list:
     """Per kernel: times summed over one forward's launches at the path shape
     (each shape's time times its sites per forward): ``ms`` with the host's
@@ -1712,7 +2120,7 @@ def summary(records, main_paths: dict) -> list:
                             f"{CSA_PATH_SHAPE[1]} tokens, bf16")
     out = []
     for name in SOURCES:
-        mine = [r for r in records if r["name"] == name]
+        mine = [r for r in records if r["name"] == name and r.get("phase") == "kernel"]
         path = [r for r in mine if "sites_per_forward" in r]
         per_fwd = lambda key: sum(r[key] * r["sites_per_forward"] for r in path)
         t_bytes = sum(r["bound_ms"] * r["sites_per_forward"] for r in path
@@ -1730,16 +2138,36 @@ def summary(records, main_paths: dict) -> list:
             "bound_by": "bytes" if t_bytes >= per_fwd("bound_ms") / 2 else "operations",
             "library_ms": None if path[0]["library_ms"] is None else per_fwd("library_ms"),
             "per": per[name], "shapes": len(path),
-            **({"variant": path[0]["variant"]} if "variant" in path[0] else {})})
+            **({"variant": path[0]["variant"]} if "variant" in path[0] else {}),
+            **(text_paths(records) if name == "csa_attention" else {})})
     return out
+
+
+def text_paths(records) -> dict:
+    """K6 on the text branch's training paths (float32, one launch each): its
+    records at the two shapes and the closed-form backward's times."""
+    keys = ("site", "shape", "variant", "max_abs_err", "kernel_ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    train = [{k: r[k] for k in keys} for r in records
+             if r.get("phase") == "kernel" and r["site"].startswith("train_")]
+    backward = [{k: r[k] for k in ("shape", "dtype", "ms", "plain_autograd_ms")}
+                for r in records if r.get("phase") == "csa_backward"]
+    return {"train_paths": train, "backward": backward}
 
 
 def main() -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_records.jsonl").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def mark(group: str) -> None:  # command seconds per group of phases
+        seconds[group] = time.perf_counter() - t0 - sum(seconds.values())
+
     dev = phase_device()
     phase_build()
+    mark("build")
     # serving: no autograd, as every serving entry point runs
     with torch.inference_mode():
         pred = make_predictor()
@@ -1754,20 +2182,33 @@ def main() -> None:
         phase_card_vs_cpu()
     del pred, httpd, batcher
     torch.cuda.empty_cache()
+    mark("serving_fusion")
     # training: autograd on, the BatchNorm graph, no hand-written kernel
     phase_guard()
     main_paths["train"] = phase_train(dev)
     main_paths["train_cli"], main_paths["train_cli_serve"], trained = phase_train_cli(dev)
     phase_train_card_vs_cpu()
+    mark("training")
     # the GPU-resident training set
     phase_device_aug_card_vs_cpu()
     main_paths["train_device_cache"] = phase_train_device_cache(dev)
     torch.cuda.empty_cache()
+    mark("device_cache")
     # int8 serving
     with torch.inference_mode():
         main_paths["quant"] = phase_quant(dev, trained)
         main_paths["serve_quant"] = phase_serve_quant(dev)
+    torch.cuda.empty_cache()
+    mark("quant")
+    # the text branch's training: float32, TF32 off, as the JAX CLIs' default
+    text_kernel_records(records)
+    main_paths["train_clipseg"] = phase_train_clipseg(dev)
+    main_paths["train_longclip"] = phase_train_longclip(dev)
+    phase_text_train_card_vs_cpu()
+    main_paths["clip_resnet"] = phase_clip_resnet(dev)
+    mark("text_branch")
     kernels = summary(records, main_paths)
+    emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t0})
     print(dev["nvidia_smi"])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

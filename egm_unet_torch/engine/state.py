@@ -30,12 +30,14 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """One optimiser update from the gradients in ``.grad``, then the
-        schedule's next step.  A parameter that took no gradient gets a zero
-        one, so that weight decay and momentum still move it, as optax moves
-        every leaf."""
-        for p in self.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        schedule's next step.  A parameter of the optimiser that took no
+        gradient gets a zero one, so that weight decay and momentum still
+        move it, as optax moves every leaf; frozen parameters are not the
+        optimiser's and stay as they are."""
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1

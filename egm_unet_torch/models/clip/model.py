@@ -1,4 +1,5 @@
-"""CLIP (Long-CLIP text tower, ViT with CSA), port of
+"""CLIP (Long-CLIP text tower; ViT with CSA, or the ModifiedResNet of
+``models/clip/resnet.py`` for a tuple ``vision_layers``), port of
 ``egm_unet_tpu/models/clip/model.py``.
 
 Activations are [B, S, D] and images NHWC, as in the JAX package.  Module and
@@ -41,7 +42,7 @@ KEEP_LEN = 20  # Long-CLIP keeps the first 20 positions verbatim
 class CLIPConfig:
     embed_dim: int = 512
     image_resolution: int = 224
-    vision_layers: int = 12
+    vision_layers: int = 12  # or per-stage block counts: the RN tower
     vision_width: int = 768
     vision_patch_size: int = 16
     context_length: int = 248  # Long-CLIP default
@@ -54,6 +55,12 @@ class CLIPConfig:
     @property
     def vision_heads(self) -> int:
         return self.vision_width // 64
+
+
+def is_resnet(cfg: CLIPConfig) -> bool:
+    """A tuple ``vision_layers`` (per-stage block counts) means the
+    ModifiedResNet tower."""
+    return isinstance(cfg.vision_layers, (tuple, list))
 
 
 VIT_B16 = CLIPConfig()
@@ -227,11 +234,16 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig = VIT_B16):
         super().__init__()
         self.cfg = cfg
-        if isinstance(cfg.vision_layers, (tuple, list)):
-            raise NotImplementedError(
-                "the ModifiedResNet tower (a tuple vision_layers) is not ported "
-                "yet (ROADMAP.md, queue 1: models/clip/resnet.py)")
-        self.visual = VisionTransformer(cfg)
+        if is_resnet(cfg):
+            # RN checkpoints ("RN50", ...) carry per-stage block counts
+            from egm_unet_torch.models.clip.resnet import ModifiedResNet
+
+            self.visual = ModifiedResNet(
+                cfg.vision_layers, output_dim=cfg.embed_dim,
+                heads=cfg.vision_width * 32 // 64,
+                input_resolution=cfg.image_resolution, width=cfg.vision_width)
+        else:
+            self.visual = VisionTransformer(cfg)
         tw = cfg.transformer_width
         self.token_embedding = Embed(cfg.vocab_size, tw)
         self.positional_embedding = nn.Parameter(torch.zeros(cfg.context_length, tw))
@@ -255,7 +267,9 @@ class CLIP(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The compute dtype, carried by the matmul weights."""
+        """The compute dtype, carried by the matmul and conv weights."""
+        if is_resnet(self.cfg):
+            return self.visual.stem_conv1.kernel.dtype
         return self.visual.conv1.kernel.dtype
 
     def _text_pos(self) -> torch.Tensor:
@@ -291,6 +305,9 @@ class CLIP(nn.Module):
                              pooled: bool = True):
         """Dense ViT pass with per-layer activation extraction and CSA in
         every block, the CLIPSeg encoder contract."""
+        if is_resnet(self.cfg):
+            raise ValueError("dense extraction requires a ViT tower; the "
+                             "ModifiedResNet tower has no CSA/dense path")
         return self.visual(image, csa=True, dense=True,
                            extract_layers=extract_layers, pooled=pooled)
 

@@ -20,9 +20,11 @@ float32 stays on the CUDA cores, which hold 1e-4 relative (see PERF.md).
 
 ``csa_attention`` launches the kernel for CUDA tensors and runs ``csa_plain``
 for CPU tensors; nothing falls back from one to the other.  It is
-differentiable: the backward pass is the gradient of ``csa_plain`` on the
-saved q, k, v, as the JAX package's ``custom_vjp`` takes the gradient of its
-einsum path.
+differentiable: the backward pass is ``csa_backward``, the closed form of the
+gradient that the JAX package's ``custom_vjp`` takes of its einsum path (a
+VJP in plain tensor ops there too, not a Pallas kernel).  It recomputes the
+two softmaxes from the saved q, k, v and calls neither ``csa_plain`` nor
+``multi_head_attention``.
 """
 
 from __future__ import annotations
@@ -109,8 +111,49 @@ def _forward(q, k, v, num_heads):
     return out
 
 
+def csa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 grad_out: torch.Tensor, num_heads: int) -> tuple:
+    """``(dq, dk, dv)`` of ``csa_attention`` at q, k, v for the output
+    gradient ``grad_out``, in closed form.  Per head, with s = hd^-1/2,
+    ``P1 = softmax(s q q^T)``, ``P2 = softmax(s k k^T)`` and
+    ``W = P1 + P2``:
+
+        dv = W^T g,   dW = g v^T,
+        dS_i = P_i * (dW - rowsum(dW * P_i)),
+        dq = s dS_1 q + s dS_1^T q,   dk = s dS_2 k + s dS_2^T k.
+
+    It rounds as the forward does: scores and softmaxes in float32 (float64
+    for float64 inputs), W rounded to ``v.dtype`` before it meets g, and
+    ``g v^T`` in the inputs' dtype, as autograd rounds them through
+    ``csa_plain``; the gradients come back in the inputs' dtype.  q, k, v may
+    be strided views with last stride 1."""
+    b, s, d = q.shape
+    hd = d // num_heads
+    scale = hd ** -0.5
+    dt = v.dtype
+    acc = torch.promote_types(dt, torch.float32)
+
+    def heads(t):
+        return t.reshape(b, s, num_heads, hd).permute(0, 2, 1, 3)
+
+    def merge(t):
+        return t.permute(0, 2, 1, 3).reshape(b, s, d).to(dt)
+
+    vh, gh = heads(v), heads(grad_out.to(dt))
+    d_w = torch.matmul(gh, vh.transpose(-1, -2)).to(acc)
+    ahs = [heads(a).to(acc) for a in (q, k)]
+    probs = [torch.softmax(torch.matmul(ah, ah.transpose(-1, -2)) * scale, dim=-1)
+             for ah in ahs]
+    d_v = merge(torch.matmul((probs[0] + probs[1]).to(dt).transpose(-1, -2), gh))
+    d_qk = []
+    for ah, p in zip(ahs, probs):
+        d_s = p * (d_w - (d_w * p).sum(dim=-1, keepdim=True)) * scale
+        d_qk.append(merge(torch.matmul(d_s, ah) + torch.matmul(d_s.transpose(-1, -2), ah)))
+    return d_qk[0], d_qk[1], d_v
+
+
 class _CSAFunction(torch.autograd.Function):
-    """Forward: the kernel.  Backward: the gradient of ``csa_plain``."""
+    """Forward: the kernel.  Backward: ``csa_backward``."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads):
@@ -120,11 +163,7 @@ class _CSAFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        saved = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = csa_plain(*saved, ctx.num_heads)
-        grads = torch.autograd.grad(out, saved, grad_out)
-        return (*grads, None)
+        return (*csa_backward(*ctx.saved_tensors, grad_out, ctx.num_heads), None)
 
 
 def csa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,8 +6,8 @@ Covers two of the reference's checkpoint families:
 - the CLIPSeg decoder (``rd64-uni.pth``, loaded non-strictly over the frozen
   tower).
 
-The ModifiedResNet tower and the GRFB/EGM-UNet ``.pth`` name map are not
-ported yet (ROADMAP.md).
+CLIP towers are the ViT or the ModifiedResNet (a tuple ``vision_layers``).
+The GRFB/EGM-UNet ``.pth`` name map is not ported yet (ROADMAP.md).
 
 Layout maps: Linear weight [out, in] -> ``Dense`` kernel [in, out]
 (transpose); Conv2d OIHW -> HWIO; ConvTranspose2d (in, out, kh, kw) ->
@@ -94,22 +94,53 @@ def infer_clip_config(sd: Mapping) -> dict:
     )
 
 
+def _inference_bn(out: dict, sd, src: str, dst: str) -> None:
+    """torch ``BatchNorm2d`` weights and running statistics -> an
+    ``InferenceBatchNorm`` (``models/clip/resnet.py``)."""
+    _put(out, f"{dst}.scale", _t(sd[f"{src}.weight"]))
+    _put(out, f"{dst}.bias", _t(sd[f"{src}.bias"]))
+    _put(out, f"{dst}.mean", _t(sd[f"{src}.running_mean"]))
+    _put(out, f"{dst}.var", _t(sd[f"{src}.running_var"]))
+
+
+def _rn_visual(out: dict, sd, stage_blocks) -> None:
+    """The ModifiedResNet tower of a reference state dict (module names of
+    ref: clip/model.py:106-157) -> ``visual.*`` of the port's CLIP."""
+    for i in (1, 2, 3):
+        conv_oihw(out, sd, f"visual.conv{i}", f"visual.stem_conv{i}")
+        _inference_bn(out, sd, f"visual.bn{i}", f"visual.stem_bn{i}")
+    for stage, blocks in enumerate(stage_blocks, start=1):
+        for b in range(blocks):
+            src, dst = f"visual.layer{stage}.{b}", f"visual.layer{stage}_{b}"
+            for j in (1, 2, 3):
+                conv_oihw(out, sd, f"{src}.conv{j}", f"{dst}.conv{j}")
+                _inference_bn(out, sd, f"{src}.bn{j}", f"{dst}.bn{j}")
+            if f"{src}.downsample.0.weight" in sd:
+                conv_oihw(out, sd, f"{src}.downsample.0", f"{dst}.ds_conv")
+                _inference_bn(out, sd, f"{src}.downsample.1", f"{dst}.ds_bn")
+    _put(out, "visual.attnpool.positional_embedding",
+         _t(sd["visual.attnpool.positional_embedding"]))
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        linear(out, sd, f"visual.attnpool.{name}", f"visual.attnpool.{name}")
+
+
 def clip_from_torch(sd: Mapping, n_vision_layers,
                     n_text_layers: int) -> Dict[str, torch.Tensor]:
     """Reference CLIP state dict -> the ``state_dict`` of
-    ``models.clip.model.CLIP``.  ``n_vision_layers``: the ViT depth."""
-    if isinstance(n_vision_layers, (tuple, list)):
-        raise NotImplementedError(
-            "the ModifiedResNet tower is not ported yet (ROADMAP.md, queue 1: "
-            "models/clip/resnet.py and its converter)")
+    ``models.clip.model.CLIP``.  ``n_vision_layers``: the ViT depth, or the
+    ModifiedResNet's tuple of per-stage block counts."""
     out: Dict[str, torch.Tensor] = {}
-    conv_oihw(out, sd, "visual.conv1", "visual.conv1")
-    for name in ("class_embedding", "positional_embedding", "proj"):
-        _put(out, f"visual.{name}", _t(sd[f"visual.{name}"]))
-    layernorm(out, sd, "visual.ln_pre", "visual.ln_pre")
-    layernorm(out, sd, "visual.ln_post", "visual.ln_post")
-    for i in range(n_vision_layers):
-        _resblock(out, sd, f"visual.transformer.resblocks.{i}", f"visual.resblock{i}")
+    if isinstance(n_vision_layers, (tuple, list)):
+        _rn_visual(out, sd, tuple(n_vision_layers))
+    else:
+        conv_oihw(out, sd, "visual.conv1", "visual.conv1")
+        for name in ("class_embedding", "positional_embedding", "proj"):
+            _put(out, f"visual.{name}", _t(sd[f"visual.{name}"]))
+        layernorm(out, sd, "visual.ln_pre", "visual.ln_pre")
+        layernorm(out, sd, "visual.ln_post", "visual.ln_post")
+        for i in range(n_vision_layers):
+            _resblock(out, sd, f"visual.transformer.resblocks.{i}",
+                      f"visual.resblock{i}")
     _put(out, "token_embedding.embedding", _t(sd["token_embedding.weight"]))
     for name in ("positional_embedding", "text_projection", "logit_scale"):
         _put(out, name, _t(sd[name]))

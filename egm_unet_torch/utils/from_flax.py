@@ -8,7 +8,8 @@ names that inner child in its ``flax_child`` attribute, as ``BatchNorm``
 names ``BatchNorm_0`` and ``LayerNormF32`` names ``LayerNorm_0``), every
 other parameter ``a.b.name`` is ``a/b/name``.  Parameters come from the
 ``params`` collection, buffers (the BatchNorm ``mean`` and ``var``) from
-``batch_stats``.  Conv kernels stay HWIO, ``Dense`` kernels [in, out],
+``batch_stats``; the RN CLIP tower's eval BatchNorms keep ``mean`` and
+``var`` as parameters, as the JAX package keeps them in ``params``.  Conv kernels stay HWIO, ``Dense`` kernels [in, out],
 embeddings and bare parameters (``class_embedding``, ``proj``,
 ``trans_conv_kernel``, ...) and the MCA gate kernels ``(k,)`` as they are.
 

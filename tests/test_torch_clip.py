@@ -239,8 +239,15 @@ def test_bf16_cast_leaves_float32_parameters_alone(pair):
 
 
 def test_resnet_tower_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CLIP(dataclasses.replace(TINY, vision_layers=(1, 1, 1, 1)))
+    """The RN tower is ported now (its parity: tests/test_torch_clip_resnet.py):
+    a tuple ``vision_layers`` builds it, and the dense CLIPSeg path refuses
+    it as the JAX package does."""
+    model = CLIP(dataclasses.replace(TINY, vision_layers=(1, 1, 1, 1), image_resolution=64))
+    assert type(model.visual).__name__ == "ModifiedResNet"
+    img = torch.zeros(1, 64, 64, 3)
+    assert model.encode_image(img).shape == (1, KW["embed_dim"])
+    with pytest.raises(ValueError, match="ViT"):
+        model.visual_forward_dense(img, [1])
 
 
 def test_configs_and_stretch():

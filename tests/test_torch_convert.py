@@ -124,11 +124,14 @@ def test_load_clip_checkpoint(tmp_path, stretch):
 
 
 def test_resnet_checkpoints_wait():
+    """Since the RN tower landed, a tuple ``vision_layers`` takes the RN
+    converter (it reads the ModifiedResNet's module names, which a ViT state
+    dict lacks) and builds the RN tower; the RN conversion itself is held
+    against the JAX converter in tests/test_torch_clip_resnet.py."""
     sd = _clip_sd()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="visual.bn1.weight"):
         convert.clip_from_torch(sd, (1, 1, 1, 1), TL)
-    assert not hasattr(convert, "_rn_visual")
+    assert callable(convert._rn_visual) and callable(convert._inference_bn)
     cfg = dataclasses.replace(CLIPConfig(**convert.infer_clip_config(sd)),
                               vision_layers=(1, 1, 1, 1))
-    with pytest.raises(NotImplementedError):
-        CLIP(cfg)
+    assert type(CLIP(cfg).visual).__name__ == "ModifiedResNet"

@@ -125,12 +125,15 @@ def test_csa_attention_takes_strided_views(b, s, d, h):
 
 
 def test_csa_gradients_flow_through_views():
+    """The backward on the ``chunk`` views of one in_proj output gives the
+    gradient it gives on three contiguous tensors (its accuracy against
+    ``csa_plain`` and JAX is held below)."""
     q, k, v = map(to_torch, _qkv(2, 9, 32, seed=8))
     with torch.enable_grad():
         qkv = torch.cat([q, k, v], dim=-1).requires_grad_(True)
         csa.csa_attention(*qkv.chunk(3, dim=-1), 4).square().sum().backward()
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        csa.csa_plain(*leaves, 4).square().sum().backward()
+        csa.csa_attention(*leaves, 4).square().sum().backward()
     assert_close(qkv.grad, torch.cat([t.grad for t in leaves], dim=-1), 1e-5, 1e-6)
 
 
@@ -216,3 +219,113 @@ def test_mult_mask(mask_type, csa_on):
     with pytest.raises(ValueError):
         multi_head_attention(*map(to_torch, (q, k, v)), h,
                              mult_mask=("rows", to_torch(mask)))
+
+
+# ------------------------------------------------- the closed-form backward
+# ``csa_backward`` against jax.vjp of the JAX kernel (Pallas in interpret mode
+# forward, the einsum path's VJP backward), against autograd through
+# ``csa_plain``, and against the float64 gradient of the formula (autograd
+# through a float64 einsum written here), on chunk views of one in_proj output
+# and on contiguous tensors.  Both references compute scores and softmaxes in
+# float32, and a softmax near one-hot gives gradients small beside the terms
+# they are made from, so a float32 gradient carries an error of its own: each
+# comparison with a float32 reference allows 2e-4 of the largest gradient plus
+# twice that reference's own distance from the float64 value.  The closed
+# form in float64 holds the float64 value within 1e-10 of the largest
+# gradient; bf16 holds autograd's bf16 gradient within one bf16 step of the
+# largest (the card's rule, ``chip_smoke.py::compare``).
+
+BACKWARD_SHAPES = [(2, 12, 32, 4), (1, 33, 64, 1), (2, 50, 128, 2)]
+
+
+def _grad_case(b, s, d, seed, dtype, views):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, s, d)) * sc for sc in (1.5, 1.0, 1.0))
+    g = rng.standard_normal((b, s, d))
+    tq, tk, tv, tg = (torch.from_numpy(a).to(dtype) for a in (q, k, v, g))
+    if views:
+        tq, tk, tv = _views(tq, tk, tv)
+    return (q, k, v, g), (tq, tk, tv, tg)
+
+
+def _exact(q, k, v, g, h):
+    """The float64 gradient of the formula, by autograd."""
+    b, s, d = q.shape
+    leaves = [torch.from_numpy(np.asarray(t, np.float64)).requires_grad_(True)
+              for t in (q, k, v)]
+    heads = lambda t: t.reshape(b, s, h, d // h).permute(0, 2, 1, 3)
+    with torch.enable_grad():
+        qh, kh, vh = map(heads, leaves)
+        sm = lambda a: torch.softmax(a @ a.transpose(-1, -2) * (d // h) ** -0.5, dim=-1)
+        out = ((sm(qh) + sm(kh)) @ vh).permute(0, 2, 1, 3).reshape(b, s, d)
+        grads = torch.autograd.grad(out, leaves, torch.from_numpy(np.asarray(g, np.float64)))
+    return [t.numpy() for t in grads]
+
+
+def _assert_near(got, ref, exact):
+    for a, r, e in zip(got, ref, exact):
+        a, r = a.double().numpy(), np.asarray(r, np.float64)
+        tol = 2e-4 * np.abs(r).max() + 2 * np.abs(r - e).max()
+        np.testing.assert_allclose(a, r, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("views", [True, False], ids=["views", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("b,s,d,h", BACKWARD_SHAPES)
+def test_csa_backward_matches_jax_vjp(b, s, d, h, dtype, views):
+    (q, k, v, g), (tq, tk, tv, tg) = _grad_case(b, s, d, 11, dtype, views)
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    with jax.enable_x64(dtype == torch.float64):
+        _, vjp = jax.vjp(lambda a, b_, c: jcsa(a, b_, c, h, interpret=True),
+                         *(jnp.asarray(t, jdt) for t in (q, k, v)))
+        ref = [np.asarray(t) for t in vjp(jnp.asarray(g, jdt))]
+    got = csa.csa_backward(tq, tk, tv, tg, h)
+    assert all(t.dtype == dtype and t.shape == (b, s, d) for t in got)
+    _assert_near(got, ref, _exact(*(t.numpy() for t in (tq, tk, tv, tg)), h))
+
+
+@pytest.mark.parametrize("views", [True, False], ids=["views", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16],
+                         ids=["f32", "f64", "bf16"])
+@pytest.mark.parametrize("b,s,d,h", BACKWARD_SHAPES)
+def test_csa_backward_matches_autograd_of_plain(b, s, d, h, dtype, views):
+    _, (tq, tk, tv, tg) = _grad_case(b, s, d, 12, dtype, views)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (tq, tk, tv)]
+    with torch.enable_grad():
+        want = torch.autograd.grad(csa.csa_plain(*leaves, h), leaves, tg)
+    got = csa.csa_backward(tq, tk, tv, tg, h)
+    assert all(t.dtype == dtype for t in got)
+    if dtype == torch.bfloat16:
+        for a, w in zip(got, want):
+            tol = 2.0 ** -7 * w.float().abs().max().item()
+            assert (a.float() - w.float()).abs().max().item() <= tol
+        return
+    exact = _exact(*(t.double().numpy() for t in (tq, tk, tv, tg)), h)
+    _assert_near(got, [w.double().numpy() for w in want], exact)
+
+
+@pytest.mark.parametrize("b,s,d,h", BACKWARD_SHAPES)
+def test_csa_backward_float64_is_the_exact_gradient(b, s, d, h):
+    (q, k, v, g), (tq, tk, tv, tg) = _grad_case(b, s, d, 14, torch.float64, True)
+    for a, e in zip(csa.csa_backward(tq, tk, tv, tg, h), _exact(q, k, v, g, h)):
+        np.testing.assert_allclose(a.numpy(), e, rtol=0, atol=1e-10 * np.abs(e).max())
+
+
+def test_csa_backward_calls_neither_plain_nor_mha(monkeypatch):
+    """Inside autograd the wrapper's backward is the closed form: with the
+    plain version and the einsum path made to raise after the forward, the
+    backward still runs and gives ``csa_backward``'s gradient."""
+    _, (tq, tk, tv, tg) = _grad_case(2, 9, 32, 13, torch.float32, False)
+    want = csa.csa_backward(tq, tk, tv, tg, 4)
+    with torch.enable_grad():
+        leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+        out = csa.csa_attention(*leaves, 4)
+        assert "CSAFunction" in type(out.grad_fn).__name__
+
+        def boom(*a, **k):
+            raise AssertionError("the backward called the plain path")
+        monkeypatch.setattr(csa, "csa_plain", boom)
+        monkeypatch.setattr(csa, "multi_head_attention", boom)
+        got = torch.autograd.grad(out, leaves, tg)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)

@@ -58,3 +58,13 @@ def test_training_slice_modules_are_scanned():
                 "utils/checkpoint.py", "utils/logging.py", "utils/seeding.py",
                 "cli/train.py"):
         assert f"egm_unet_torch/{mod}" in names, mod
+
+
+def test_text_branch_modules_are_scanned():
+    """The text branch's training modules and the RN tower are scanned."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("engine/clipseg_train.py", "engine/clipseg_metrics.py",
+                "engine/longclip_train.py", "data/phrasecut.py", "data/blend.py",
+                "data/fewshot.py", "data/fewshot_splits.py", "config.py",
+                "cli/train_clipseg.py", "cli/train_longclip.py", "models/clip/resnet.py"):
+        assert f"egm_unet_torch/{mod}" in names, mod

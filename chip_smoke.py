@@ -9,7 +9,10 @@ shapes the main paths give it, and drives the main paths at full width:
 - fusion: 16 images and two text prompts through the text-prompted pipeline
   of ``cli/predict_clipseg.py`` (CLIPSeg rd64 over ViT-B/16 at 352 px with the
   248-token Long-CLIP text tower, batch 32, plus EGM-UNet at 565 px, batch 16,
-  both bf16, fused as ``clip + 0.5 * unet``);
+  both bf16, fused as ``clip + 0.5 * unet``); then the float32 CLIPSeg
+  forward at batch 32 that ``cli/eval_clipseg.py`` and
+  ``cli/predict_clipseg.py`` run (``clipseg_f32``: ms per batch, img/s, K6's
+  10 launches, a profile with K6's share);
 - serve: the HTTP server of ``cli/serve.py`` on 127.0.0.1 with the same
   EGM-UNet on the pair / fused-upsample route (``conv3x3_pair_gemm`` +
   ``upsample2x_fused``), answering 12 concurrent PNG requests of two sizes;
@@ -51,10 +54,11 @@ small RN CLIP; and that K1..K5 refuse to run inside an autograd graph.
 ``conv3x3_gemm``, ``conv3x3_pair_gemm``, ``up_concat_conv`` and
 ``csa_attention`` have two hand-written kernels each, chosen by dtype:
 bfloat16 multiplies on the tensor cores (``mma_bf16``), float32 on the CUDA
-cores (``cuda_cores_f32``).  ``mca_fused`` and ``upsample2x_fused`` have a
-kernel that stages 16-byte tiles (``tile_tma`` by the TMA unit,
-``band_cp_async`` by cp.async) and a scalar one for shapes and pointers off
-the 16-byte grid.  Every ``kernel`` record carries the wrapper's choice as
+cores (``cuda_cores_f32``; ``ffma_f32`` for ``csa_attention``, whose records
+carry its tiles ``csa_f32_tiles`` as ``tile``).
+``mca_fused`` and ``upsample2x_fused`` have a kernel that stages 16-byte
+tiles (``tile_tma`` by the TMA unit, ``band_cp_async`` by cp.async) and a
+scalar one for shapes and pointers off the 16-byte grid.  Every ``kernel`` record carries the wrapper's choice as
 ``variant`` (and the three convolutions' their ``tile`` and executed FLOPs),
 and the run fails if a path record names another kernel than its dtype's
 tensor-core or CUDA-core one, or, for K1 and K4, than the 16-byte one.
@@ -226,8 +230,9 @@ def aligned16(*ts) -> bool:
 PATH_VARIANTS = {"mca_fused": {"bfloat16": "tile_tma", "float32": "tile_tma"},
                  "upsample2x_fused": {"bfloat16": "band_cp_async",
                                       "float32": "band_cp_async"}}
-for _name in ("conv3x3_gemm", "conv3x3_pair_gemm", "up_concat_conv", "csa_attention"):
+for _name in ("conv3x3_gemm", "conv3x3_pair_gemm", "up_concat_conv"):
     PATH_VARIANTS[_name] = {"bfloat16": "mma_bf16", "float32": "cuda_cores_f32"}
+PATH_VARIANTS["csa_attention"] = {"bfloat16": "mma_bf16", "float32": "ffma_f32"}
 
 
 def device_time_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -452,31 +457,41 @@ def site_call(site, cast):
              "variant": conv3x3.conv3x3_variant(x.dtype)})
 
 
-def csa_call(shape, dtype, seed: int = SEED, views: bool = False):
+def csa_call(shape, dtype, seed: int = SEED, views: bool = False, odd_base: bool = False):
     """The K6 call at ``shape`` = (B, S, D, heads) on seeded inputs, in the
     form ``kernel_record`` takes.  ``views``: q, k, v are the three ``chunk``
     views of one [B, S, 3 D] tensor, as a transformer block's fused
-    ``in_proj`` hands them over; otherwise three contiguous tensors.  The
-    library yardstick is two ``scaled_dot_product_attention`` calls and an
-    add on the same tensors, timed only."""
+    ``in_proj`` hands them over; otherwise three contiguous tensors.
+    ``odd_base``: each tensor starts one element into its storage, off the
+    16-byte grid.  The library yardstick is two
+    ``scaled_dot_product_attention`` calls and an add on the same tensors,
+    timed only."""
     b, s_, d, h = shape
     gen = torch.Generator().manual_seed(seed)
     q, k, v = [(torch.randn(b, s_, d, generator=gen) * sc).to(dtype).cuda()
                for sc in (1.5, 1.0, 1.0)]
+    shift = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
     if views:
-        q, k, v = torch.cat([q, k, v], dim=-1).chunk(3, dim=-1)
+        qkv = torch.cat([q, k, v], dim=-1)
+        q, k, v = (shift(qkv) if odd_base else qkv).chunk(3, dim=-1)
         check(not q.is_contiguous() and k.data_ptr() == q.data_ptr()
               + d * q.element_size(), "q, k, v are not views of one tensor")
+    elif odd_base:
+        q, k, v = map(shift, (q, k, v))
+    check(aligned16(q) != odd_base, f"q's base on the 16-byte grid: {aligned16(q)}")
     heads = lambda t: t.unflatten(-1, (h, d // h)).transpose(1, 2)
 
     def library():
         return (F.scaled_dot_product_attention(heads(q), heads(q), heads(v))
                 + F.scaled_dot_product_attention(heads(k), heads(k), heads(v)))
+    extra = {"variant": csa.csa_variant(dtype),
+             "layout": "in_proj_views" if views else "contiguous"}
+    if dtype == torch.float32:
+        extra["tile"] = list(csa.csa_f32_tiles(s_, d // h))
+        extra["executed_flops"] = b * h * csa.csa_f32_flops(s_, d // h)[1]
     return ("csa_attention", ("csa", (b, s_, d), h, str(dtype)),
             lambda: csa.csa_attention(q, k, v, h), lambda: csa.csa_plain(q, k, v, h),
-            library, 4 * nbytes(q), 6.0 * b * h * s_ * s_ * (d // h), dtype,
-            {"variant": csa.csa_variant(dtype),
-             "layout": "in_proj_views" if views else "contiguous"})
+            library, 4 * nbytes(q), 6.0 * b * h * s_ * s_ * (d // h), dtype, extra)
 
 
 def compare(kernel_fn, plain_fn, dtype) -> tuple:
@@ -570,8 +585,10 @@ def phase_edges() -> None:
     """Each kernel against its plain version at small odd shapes: partial
     pixel and channel tiles, C=3, every tile the choosers of K2, K3 and K5
     can pick; for K5, C2 != C1, C2 off the 16-grid, h = 1 and w = 1; for K6,
-    sequence lengths off the 64-row tiles, every head-width template, and
-    strided views on and off the 16-byte grid; for
+    sequence lengths off the 64-row tiles, every head-width template,
+    strided views on and off the 16-byte grid, and in float32 every tile
+    boundary of the FFMA kernel (S = 1, 8, 9, 16, 17, 32, 33, 64, 65, 96, 97,
+    the paths' 197 and 485, hd 9, bases off the 16-byte grid); for
     the pair kernel, maps smaller than a tile (down to 1x1), Cm != Co, and
     mid widths that force each smaller tile (400 and 800: 8x8 in float32 and
     bfloat16; 1300: 4x4; 3000: 2x2 in float32); for K1 and K4, both of
@@ -582,7 +599,7 @@ def phase_edges() -> None:
     and x off the 16-byte grid."""
     gen = torch.Generator().manual_seed(SEED)
     rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).cuda()
-    worst, variants = {}, {}
+    worst, variants, n_cases = {}, {}, 0
     for dtype in (torch.float32, torch.bfloat16):
         cases = []
         # K2: every tile conv3x3_tile picks (resident 16 / 32 / 64 columns;
@@ -681,6 +698,26 @@ def phase_edges() -> None:
                       (2, 5, 64, 1), (1, 64, 128, 2), (1, 65, 128, 2)):
             call = csa_call(shape, dtype, seed=SEED + 2, views=True)
             cases.append((call[0], call[2], call[3]))
+        # the FFMA kernel's tile boundaries: S = 1; the ragged last key step's
+        # 8- and 16-key groups (S = 8, 9, 16, 17); on and one past the key
+        # step and a warp's 32 query rows (32, 33, where one warp a state
+        # idles) and the 64-row query tile (64, 65, 96, 97); the paths' S at
+        # batch 1; hd off the 16-byte grid (9); views and tensors whose base
+        # is off it
+        if dtype == torch.float32:
+            for shape, views, odd in (
+                    ((2, 1, 64, 1), True, False), ((2, 8, 64, 1), False, False),
+                    ((2, 9, 64, 1), True, False), ((2, 16, 64, 1), False, False),
+                    ((2, 17, 64, 1), True, False), ((1, 32, 128, 2), True, False),
+                    ((1, 33, 128, 2), True, False), ((1, 64, 64, 1), True, False),
+                    ((1, 65, 64, 1), True, False), ((1, 96, 128, 2), False, False),
+                    ((1, 97, 128, 2), True, False), ((1, 197, 768, 12), True, False),
+                    ((1, 485, 768, 12), True, False), ((2, 40, 18, 2), False, False),
+                    ((2, 50, 64, 1), False, True), ((1, 197, 768, 12), True, True),
+                    ((2, 20, 64, 1), True, True)):
+                call = csa_call(shape, dtype, seed=SEED + 3, views=views, odd_base=odd)
+                cases.append((call[0], call[2], call[3]))
+        n_cases += len(cases)
         for name, kfn, pfn, *variant in cases:
             err, tol, _ = compare(kfn, pfn, dtype)
             check(err <= tol, f"{name} {dtype} edge case: max abs err {err} > tol {tol}")
@@ -696,7 +733,7 @@ def phase_edges() -> None:
             for kind in kinds:
                 check(variants.get(f"{name}/{dt}/{kind}", 0) >= 3,
                       f"edge cases of {name} {dt} took {kind} fewer than 3 times: {variants}")
-    emit({"phase": "edge_shapes", "cases": 2 * len(cases), "worst_err_over_tol": worst,
+    emit({"phase": "edge_shapes", "cases": n_cases, "worst_err_over_tol": worst,
           "variants": variants})
 
 
@@ -1026,6 +1063,44 @@ def phase_fusion(unet, dev) -> dict:
                    # for q, k, v (they hand views to the kernel)
                    "copies_and_casts": "copy_kernel"})
     return rec
+
+
+def phase_clipseg_f32(dev) -> dict:
+    """The CLIPSeg forward of ``cli/eval_clipseg.py`` and
+    ``cli/predict_clipseg.py``, which run in float32 (TF32 off): rd64 over
+    ViT-B/16 at batch 32 and 352 px, seeded weights.  Counts K6's launches
+    around one forward (10: blocks 0..9), times it (CUDA events, median of 5)
+    and profiles one with K6's share of the device time."""
+    clipseg = CLIPDensePredT(clip_cfg=VIT_B16, reduce_dim=64, extract_layers=(3, 6, 9))
+    init_weights(clipseg, torch.Generator().manual_seed(SEED))
+    clipseg = clipseg.to("cuda").eval()
+    cond = clipseg.compute_conditional(prompt_tokens().cuda())
+    gen = torch.Generator().manual_seed(SEED + 2)
+    x = torch.randn(CLIP_BATCH, CLIP_SIZE, CLIP_SIZE, 3, generator=gen).cuda()
+    conds = cond.repeat(CLIP_BATCH // 2, 1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    (logits,) = clipseg(x, conds)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(tuple(logits.shape) == (CLIP_BATCH, CLIP_SIZE, CLIP_SIZE, 1)
+          and logits.dtype == torch.float32 and bool(torch.isfinite(logits).all()),
+          f"float32 CLIPSeg logits {tuple(logits.shape)} {logits.dtype} not finite")
+    check(launches == PER_CLIPSEG_FORWARD,
+          f"float32 CLIPSeg launches {launches} != {PER_CLIPSEG_FORWARD}")
+    ms = time_ms(lambda: clipseg(x, conds), reps=5, warm=1)
+    prof = phase_profile("clipseg_f32_profile", lambda: clipseg(x, conds),
+                         "clipseg_f32_profile.txt", {"csa_attention": "csa_ffma_kernel"})
+    rec = {"phase": "clipseg_f32", "dtype": "float32", "tf32": False,
+           "clip_size": CLIP_SIZE, "clip_batch": CLIP_BATCH, "launches": launches,
+           "ms_per_batch": ms, "img_per_s": CLIP_BATCH / ms * 1e3,
+           "k6_device_ms": prof["by_kernel_ms"]["csa_attention"],
+           "k6_device_share": prof["by_kernel_ms"]["csa_attention"] / prof["device_ms"],
+           "card": dev["nvidia_smi"]}
+    emit(rec)
+    del clipseg, x, logits
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_card_vs_cpu() -> None:
@@ -1775,7 +1850,7 @@ def text_kernel_records(records: list) -> None:
     for site, shape in (("train_clipseg: clip.visual.resblock0..9", CSA_SEG_TRAIN_SHAPE),
                         ("train_longclip: clip.visual.resblock11", CSA_LONGCLIP_SHAPE)):
         records.append(kernel_record(site, csa_call(shape, torch.float32, views=True), 5))
-        check(records[-1]["variant"] == "cuda_cores_f32",
+        check(records[-1]["variant"] == PATH_VARIANTS["csa_attention"]["float32"],
               f"K6 float32 at {shape}: variant {records[-1]['variant']}")
         torch.cuda.empty_cache()
     b, s_, d, h = CSA_LONGCLIP_SHAPE
@@ -1853,7 +1928,7 @@ def phase_train_clipseg(dev) -> dict:
              prompt_tokens((12,) * SEG_BATCH).cuda())
     step = make_clipseg_train_step()
     phase_profile("train_clipseg_profile", lambda: step(run["state"], *batch),
-                  "train_clipseg_profile.txt", {"csa_attention": "csa_kernel"})
+                  "train_clipseg_profile.txt", {"csa_attention": "csa_ffma_kernel"})
     del run, after, snap, batch
     tmp.cleanup()
     torch.cuda.empty_cache()
@@ -1920,7 +1995,7 @@ def phase_train_longclip(dev) -> dict:
                              generator=gen).cuda() for _ in range(2)))
     step = make_longclip_train_step()
     phase_profile("train_longclip_profile", lambda: step(run["state"], *batch),
-                  "train_longclip_profile.txt", {"csa_attention": "csa_kernel"})
+                  "train_longclip_profile.txt", {"csa_attention": "csa_ffma_kernel"})
     del run, model, snap, batch
     tmp.cleanup()
     torch.cuda.empty_cache()
@@ -2144,15 +2219,16 @@ def summary(records, main_paths: dict) -> list:
 
 
 def text_paths(records) -> dict:
-    """K6 on the text branch's training paths (float32, one launch each): its
-    records at the two shapes and the closed-form backward's times."""
-    keys = ("site", "shape", "variant", "max_abs_err", "kernel_ms", "device_ms",
+    """K6 in float32, one launch each, on the paths that run it (the fusion
+    CLIs' CLIPSeg forward and the text branch's two trainers), and the
+    closed-form backward's times."""
+    keys = ("site", "shape", "variant", "tile", "max_abs_err", "kernel_ms", "device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    train = [{k: r[k] for k in keys} for r in records
-             if r.get("phase") == "kernel" and r["site"].startswith("train_")]
+    f32 = [{k: r[k] for k in keys} for r in records if r.get("phase") == "kernel"
+           and r["name"] == "csa_attention" and r["dtype"] == "float32"]
     backward = [{k: r[k] for k in ("shape", "dtype", "ms", "plain_autograd_ms")}
                 for r in records if r.get("phase") == "csa_backward"]
-    return {"train_paths": train, "backward": backward}
+    return {"float32_paths": f32, "backward": backward}
 
 
 def main() -> None:
@@ -2177,6 +2253,7 @@ def main() -> None:
         phase_edges()
         main_paths = {"serving": phase_serving(pred, dev)["launches"],
                       "fusion": phase_fusion(pred.model, dev)["launches"],
+                      "clipseg_f32": phase_clipseg_f32(dev),
                       "serve": phase_serve(httpd, batcher, pred, dev)["launches"],
                       "predict_cli": phase_predict_cli(dev)["launches"]}
         phase_card_vs_cpu()

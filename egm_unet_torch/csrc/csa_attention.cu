@@ -53,9 +53,11 @@
 //   base) take a scalar loader into the same tiles.  Head widths above 64 walk
 //   32 keys a step and read the q and k fragments from shared memory, since
 //   the two output accumulators alone take 128 registers there.
-// - float32, "cuda_cores_f32" (csa_kernel): 4x4 register tiles over
-//   transposed float32 shared-memory operands on the CUDA cores; the float32
-//   weights meet v unrounded.  It holds 1e-4 relative, which TF32 would not.
+// - float32, "ffma_f32" (csa_ffma_kernel): FFMA on the CUDA cores in full
+//   float32 (no TF32: the text trainers hold it at float32 tolerances, and it
+//   holds 1e-4 relative); the float32 weights meet v unrounded.  Warps own 32
+//   query rows and one state each, so a thread keeps one accumulator of 8 rows
+//   x hd/8 columns, and P goes through a tile private to its warp (__syncwarp).
 //
 // Bound: operations.  At the path shape ([32, 485, 768], 12 heads of 64,
 // bf16) the function needs 6*B*H*S^2*hd = 34.7 GFLOP = 0.035 ms at the
@@ -66,6 +68,36 @@
 // the wgmma rate; the
 // exponentials (two per score) and the softmax arithmetic take about as long
 // as the products.  See PERF.md for what it reaches.
+//
+// In float32 the same count over the CUDA cores' 67 TFLOP/s FFMA rate is the
+// bound: 1.035 ms at [64, 485, 768] (the CLIPSeg trainer's batch), 0.518 ms
+// at [32, 485, 768] (the fusion CLIs), 0.0854 ms at [32, 197, 768] (the
+// Long-CLIP fine-tune); the bytes take 0.11, 0.057, 0.023 ms.  The walk with
+// two accumulators does 8*S^2*hd per head, 4/3 of the count.  The first
+// float32 kernel (4x4 register tiles) reached 3.9x and 7x that bound, held by
+// three limits, and this one answers each:
+// 1. Shared-memory reads.  Scalar loads from transposed tiles of odd pitch
+//    gave 2 FFMAs per float read, and an SM reads 32 floats a clock against
+//    128 FFMAs.  Now every operand is a 16-byte load and each thread's tile
+//    is 8 query rows x 8 keys in the scores (the two half-warps split the
+//    depth and trade halves of their tiles by one shuffle per score) and 8
+//    rows x 8 columns in P V: 4 FFMAs per float read in both.  The query side
+//    is transposed once, when it is staged, scaled by scale * log2(e); the
+//    key side stays in rows (pitch hd_pad + 4, so the four rows a quarter-warp
+//    reads at one column lie on four bank groups).
+// 2. No overlap of copies and math.  The key tile's q, k and v rows arrive by
+//    16-byte cp.async into a two-stage ring, the next tile's copies in flight
+//    during this one's products, with one __syncthreads a step.  Views off
+//    the 16-byte grid (hd % 4 != 0, an odd base or stride) take a scalar
+//    loader into the same tiles.
+// 3. Padded work.  Tiles of 64 x 64 padded S = 197 to 256 x 256 (1.69x).
+//    Now a warp whose 32 query rows lie past S idles, so rows pad to 32 in
+//    blocks of 64 (ops/cuda/csa.py::csa_f32_tiles), keys go 32 a step, and
+//    the ragged last step scores 8, 16 or 32 keys and runs
+//    P V over its valid keys only: 1.15x at S = 197 and 1.06x at S = 485
+//    (csa_f32_flops).
+// Each lane keeps its own share of a row's sum (the 8 lanes of the row add
+// them once, at the end), and the exponentials are ex2.approx.
 #include <math.h>
 
 #include "common.cuh"
@@ -73,202 +105,354 @@
 
 namespace {
 
-constexpr int kBQ = 64;   // query rows per block
-constexpr int kBK = 64;   // key rows per loop step
-constexpr int kNT = 256;  // threads: 16 x 16, each owns 4 query rows x 4 strided columns
-constexpr int kLD = 65;   // row pitch of the transposed tiles (conflict-free transposing stores)
-
 // row and batch strides of q, k and v, in elements (the last stride is 1)
 struct Strides {
   long long q_row, q_batch, k_row, k_batch, v_row, v_batch;
 };
 
-// dst[d * kLD + r] = src[r * D + d] * mul, zero outside rows < rows_valid, d < hd
-template <typename T, int HDP>
-__device__ __forceinline__ void load_transposed(float* __restrict__ dst,
-                                                const T* __restrict__ src, int rows_valid,
-                                                long long D, int hd, float mul) {
-  for (int e = threadIdx.x; e < 64 * HDP; e += kNT) {
-    const int r = e / HDP, d = e % HDP;
-    float val = 0.f;
-    if (r < rows_valid && d < hd) val = egm::to_f32(src[r * D + d]) * mul;
-    dst[d * kLD + r] = val;
-  }
+// ---------------------------------------------------------------- float32, FFMA
+
+constexpr int kFK = 32;       // keys per step
+constexpr int kFW = 2;        // warps per state: a block holds 64 query rows
+constexpr int kFStages = 2;   // ring depth of the key-side tiles
+constexpr int kPP = 36;       // row pitch of a warp's P tile (one row per key, 32 query rows)
+
+// floats of one ring stage: the key tile's q rows and k rows (pitch HDP + 4:
+// the score loads read four neighbouring rows at one column, which the pad
+// puts on four bank groups), then its v rows (pitch HDP)
+__host__ __device__ constexpr int f32_stage_floats(int HDP) {
+  return 2 * kFK * (HDP + 4) + kFK * HDP;
 }
 
-// dst[r * HDP + d] = src[r * D + d], zero outside
-template <typename T, int HDP>
-__device__ __forceinline__ void load_rows(float* __restrict__ dst, const T* __restrict__ src,
-                                          int rows_valid, long long D, int hd) {
-  for (int e = threadIdx.x; e < 64 * HDP; e += kNT) {
-    const int r = e / HDP, d = e % HDP;
-    float val = 0.f;
-    if (r < rows_valid && d < hd) val = egm::to_f32(src[r * D + d]);
-    dst[e] = val;
-  }
+// dynamic shared memory of csa_ffma_kernel<HDP>: the query side transposed,
+// the ring, one P tile per warp (tests/test_torch_csa_tiles.py counts it by
+// hand)
+__host__ __device__ constexpr int f32_smem_bytes(int HDP) {
+  return (2 * HDP * 32 * kFW + kFStages * f32_stage_floats(HDP) + 2 * kFW * kFK * kPP) *
+         (int)sizeof(float);
 }
 
-// One online-softmax step over this thread's 4 x 4 piece of a score tile
-// (log2 domain).  Columns tx + 16 j >= cols_valid are masked.  On return s
-// holds exp2(s - m_new), corr the factor for the old accumulator.
-__device__ __forceinline__ void online_softmax(float (&s)[4][4], float (&m)[4], float (&l)[4],
-                                               float (&corr)[4], int cols_valid, int tx) {
+// Where the 8 query rows of row group rg sit in a row of a P tile: groups
+// 0..3 at 0, 16, 8, 24, so that the two groups a quarter-warp stores for one
+// key are four bank groups apart.
+__device__ __forceinline__ int p_rows(int rg) { return 16 * (rg & 1) + 8 * (rg >> 1); }
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 2^x by the special-function unit alone (ex2.approx: 2^-inf = 0, relative
+// error about 2^-22, far below the bf16 rounding of the weights and inside the
+// float32 kernel's 1e-4)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// One warp's partial score tile over its half of the head width: s[i][jj] +=
+// sum_d A[d][i] * B[key(jj)][d] for its 8 query rows i and 8 keys.  A: the
+// query side, transposed ([d][row], pitch BQ), at this lane's rows; B: the
+// key tile's rows (pitch HDP + 4), at its first column of the half.  Keys:
+// cq + 4 jj, except that with SWAP the upper half-warp holds key groups jj ^ 4
+// (so that the exchange below needs no selects).  NJ < 8: only the first NJ
+// key groups (the ragged last tile).
+template <int HDP, int BQ, int NJ, bool SWAP>
+__device__ __forceinline__ void ffma_scores(float (&s)[8][8], const float* __restrict__ A,
+                                            const float* __restrict__ B, int cq, int h) {
+  constexpr int KP = HDP + 4;
+  // key groups per pass over a 4-deep slice: all 8, or 4 at a time at head
+  // widths above 64, where the accumulator of P V takes 128 registers
+  constexpr int JB = HDP > 64 && NJ > 4 ? 4 : NJ;
+  static_assert(!SWAP || NJ == 8, "the swapped key order covers the whole tile");
+  const float* b_lo = B + (cq + (SWAP ? 16 * h : 0)) * KP;
+  const float* b_hi = B + (cq + (SWAP ? 16 - 16 * h : 16)) * KP;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float mt = -INFINITY;
+  for (int d0 = 0; d0 < HDP / 2; d0 += 4) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (tx + 16 * j >= cols_valid) s[i][j] = -INFINITY;
-      mt = fmaxf(mt, s[i][j]);
+    for (int j0 = 0; j0 < NJ; j0 += JB) {
+      float4 b[JB];
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj) {
+        const int g = j0 + jj;
+        b[jj] = ld4((g < 4 ? b_lo + 4 * g * KP : b_hi + 4 * (g - 4) * KP) + d0);
+      }
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        const float4 a0 = ld4(A + (d0 + dd) * BQ), a1 = ld4(A + (d0 + dd) * BQ + 4);
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < JB; ++jj)
+            s[i][j0 + jj] = fmaf(a[i], comp(b[jj], dd), s[i][j0 + jj]);
+      }
     }
-    // the 16 threads of a row are 16 consecutive lanes of one warp
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-    const float mn = fmaxf(m[i], mt);  // finite: every key tile has a valid column
-    corr[i] = exp2f(m[i] - mn);        // 0 at the first tile (m = -inf)
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[i][j] = exp2f(s[i][j] - mn);
-      sum += s[i][j];
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    l[i] = l[i] * corr[i] + sum;
-    m[i] = mn;
   }
 }
 
-// HDP: the head width rounded up to 32, 64 or 128; columns d >= hd are zeros
-// in shared memory and are never written out.
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kNT)
-csa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ out, int S, int H, int hd, int q_tiles, float scale_log2e,
-           Strides st) {
-  constexpr int NC = HDP / 16;                             // output columns per thread
-  constexpr int KEYR = (HDP > kBK ? HDP : kBK) * kLD;      // key-side region, reused for P
-  extern __shared__ float smem[];
-  float* Qq = smem;             // [HDP][kLD] q rows of the queries, times scale * log2(e)
-  float* Kq = Qq + HDP * kLD;   // [HDP][kLD] k rows of the queries, times scale * log2(e)
-  float* Qk = Kq + HDP * kLD;   // [HDP][kLD] q rows of the key tile; then P1 [kBK][kLD]
-  float* Kk = Qk + KEYR;        // [HDP][kLD] k rows of the key tile; then P2 [kBK][kLD]
-  float* Vs = Kk + KEYR;        // [kBK][HDP] v rows of the key tile
+// The float32 kernel: one block = one (batch, head, BQ-query tile), BQ = 64.
+// Warps 0 and 1 hold state 1 (q q^T) and warps 2 and 3 state 2 (k k^T),
+// each for 32 query rows, so that a warp keeps one output accumulator (8 rows
+// x HDP/8 columns a thread) and the two states never share a rescale.  A lane
+// is (h, rg, cq): rows 8 rg .. 8 rg + 7 of its warp's 32; in the scores keys
+// cq + 4 jj of the step's 32 over half h of the head width (the half-warps
+// split the depth, then trade halves of their tiles by one shuffle per
+// element); in P V columns 4 cg + 32 c, cg = cq + 4 h.  Each thread reads 16
+// floats by four 16-byte loads for 64 FFMAs in both products.
+template <int HDP>
+__global__ void __launch_bounds__(64 * kFW)
+csa_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out, int S, int H, int hd,
+                int q_tiles, float scale_log2e, Strides st, int vec) {
+  constexpr int BQ = 32 * kFW, NT = 64 * kFW, KP = HDP + 4, NC = HDP / 32;
+  constexpr int STAGE = f32_stage_floats(HDP);
+  extern __shared__ __align__(16) float smem_f32[];
+  float* QT = smem_f32;                    // [2][HDP][BQ]: q, k rows of the queries, transposed
+  float* ring = QT + 2 * HDP * BQ;         // per stage: q rows, k rows, v rows of the key tile
+  float* Pall = ring + kFStages * STAGE;   // [2 kFW][kFK][kPP]: each warp's P^T
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int state = warp / kFW, wr = warp % kFW;
+  const int h = lane >> 4, rg = (lane >> 2) & 3, cq = lane & 3, cg = cq + 4 * h;
   const int qt = blockIdx.x % q_tiles;
-  const int h = (blockIdx.x / q_tiles) % H;
+  const int head = (blockIdx.x / q_tiles) % H;
   const int b = blockIdx.x / (q_tiles * H);
   const int D = H * hd;
-  const int q0 = qt * kBQ;
-  const long long base = (long long)b * S * D + (long long)h * hd;  // out at [b, 0, h*hd]
-  q += b * st.q_batch + (long long)h * hd;
-  k += b * st.k_batch + (long long)h * hd;
-  v += b * st.v_batch + (long long)h * hd;
+  const int q0 = qt * BQ;
+  const int steps = (S + kFK - 1) / kFK;
+  q += b * st.q_batch + (long long)head * hd;
+  k += b * st.k_batch + (long long)head * hd;
+  v += b * st.v_batch + (long long)head * hd;
 
-  load_transposed<T, HDP>(Qq, q + q0 * st.q_row, min(kBQ, S - q0), st.q_row, hd, scale_log2e);
-  load_transposed<T, HDP>(Kq, k + q0 * st.k_row, min(kBQ, S - q0), st.k_row, hd, scale_log2e);
+  // rows row0 .. row0 + 31 of src (row stride ld), columns [0, hd), into a
+  // [kFK][pitch] tile; zeros past S and past hd.  vec: 16-byte cp.async.
+  auto load_tile = [&](float* dst, const float* src, long long ld, int row0, int pitch) {
+    if (vec) {
+      constexpr int CH = HDP / 4, RSTEP = NT / CH;  // a thread's column is fixed
+      const int r0 = tid / CH, c = (tid % CH) * 4;
+      const float* from = src + (row0 + r0) * ld + c;
+      const uint32_t to = egm::mma::smem_addr(dst + r0 * pitch + c);
+#pragma unroll
+      for (int i = 0; i < kFK / RSTEP; ++i) {
+        const bool ok = row0 + r0 + i * RSTEP < S && c < hd;
+        egm::mma::cp_async_16(to + i * RSTEP * pitch * 4, ok ? from : src, ok);
+        from += RSTEP * ld;
+      }
+    } else {
+      for (int e = tid; e < kFK * HDP; e += NT) {
+        const int r = e / HDP, d = e % HDP;
+        dst[r * pitch + d] = row0 + r < S && d < hd ? src[(row0 + r) * ld + d] : 0.f;
+      }
+    }
+  };
+  auto load_stage = [&](int t) {
+    float* tl = ring + (t % kFStages) * STAGE;
+    load_tile(tl, q, st.q_row, t * kFK, KP);
+    load_tile(tl + kFK * KP, k, st.k_row, t * kFK, KP);
+    load_tile(tl + 2 * kFK * KP, v, st.v_row, t * kFK, HDP);
+  };
+  load_stage(0);
+  egm::mma::cp_async_commit();
 
-  float m1[4], l1[4], m2[4], l2[4];
-  float o1[4][NC], o2[4][NC];
+  // the query side, once: QT[s][d][r] = src[q0 + r][d] * scale * log2(e), the
+  // transposition made here so that a thread's 8 rows are two 16-byte loads
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m1[i] = m2[i] = -INFINITY;
-    l1[i] = l2[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o1[i][c] = o2[i][c] = 0.f;
+  for (int s2 = 0; s2 < 2; ++s2) {
+    const float* src = s2 ? k : q;
+    const long long ld = s2 ? st.k_row : st.q_row;
+    float* dst = QT + s2 * HDP * BQ;
+    if (vec) {
+      for (int e = tid; e < BQ * HDP / 4; e += NT) {
+        const int r = e % BQ, c = (e / BQ) * 4;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q0 + r < S && c < hd) x = ld4(src + (q0 + r) * ld + c);
+        dst[(c + 0) * BQ + r] = x.x * scale_log2e;
+        dst[(c + 1) * BQ + r] = x.y * scale_log2e;
+        dst[(c + 2) * BQ + r] = x.z * scale_log2e;
+        dst[(c + 3) * BQ + r] = x.w * scale_log2e;
+      }
+    } else {
+      for (int e = tid; e < BQ * HDP; e += NT) {
+        const int r = e % BQ, d = e / BQ;
+        dst[d * BQ + r] = q0 + r < S && d < hd ? src[(q0 + r) * ld + d] * scale_log2e : 0.f;
+      }
+    }
   }
 
-  for (int k0 = 0; k0 < S; k0 += kBK) {
-    const int kv = min(kBK, S - k0);
-    __syncthreads();  // the previous step's P and V are consumed
-    load_transposed<T, HDP>(Qk, q + k0 * st.q_row, kv, st.q_row, hd, 1.f);
-    load_transposed<T, HDP>(Kk, k + k0 * st.k_row, kv, st.k_row, hd, 1.f);
-    load_rows<T, HDP>(Vs, v + k0 * st.v_row, kv, st.v_row, hd);
-    __syncthreads();
+  // per row: the running maximum m (the same on the row's 8 lanes) and this
+  // lane's share of the running sum l
+  float m[8], l[8];
+  float4 o[8][NC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) o[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float* A = QT + state * HDP * BQ + 32 * wr + 8 * rg + h * (HDP / 2) * BQ;
+  // a warp whose 32 rows all lie past S (the last query tile's second row
+  // group at S = 197) keeps to the barriers and copies and does no arithmetic
+  const bool active = q0 + 32 * wr < S;
+  float* P = Pall + warp * kFK * kPP;
+  const int prow = p_rows(rg);
 
-    float s1[4][4], s2[4][4];
+  for (int t = 0; t < steps; ++t) {
+    egm::mma::cp_async_wait<0>();  // step t has landed
+    __syncthreads();               // ... for every thread; step t - 1 is consumed
+    if (t + 1 < steps) load_stage(t + 1);
+    egm::mma::cp_async_commit();
+    const float* tile = ring + (t % kFStages) * STAGE;
+    const float* B = tile + state * kFK * KP + h * (HDP / 2);
+    const float* V = tile + 2 * kFK * KP;
+    const int kv = min(kFK, S - t * kFK);
+    if (!active) continue;
+
+    // scores of this warp's state; then each half-warp keeps 4 of its 8
+    // columns, summed over both halves of the depth: keys cq + 4 jj + 16 h
+    float s[8][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s1[i][j] = s2[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HDP; ++d) {
-      float a1[4], a2[4], b1[4], b2[4];
+      for (int jj = 0; jj < 8; ++jj) s[i][jj] = 0.f;
+    float x[8][4];
+    if (kv > 16) {
+      ffma_scores<HDP, BQ, 8, true>(s, A, B, cq, h);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a1[i] = Qq[d * kLD + ty * 4 + i];
-        a2[i] = Kq[d * kLD + ty * 4 + i];
-      }
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b1[j] = Qk[d * kLD + tx + 16 * j];
-        b2[j] = Kk[d * kLD + tx + 16 * j];
-      }
+        for (int jj = 0; jj < 4; ++jj)
+          x[i][jj] = s[i][jj] + __shfl_xor_sync(0xffffffffu, s[i][jj + 4], 16);
+    } else {
+      // at most 16 keys: the lower half-warp's 4 groups hold every valid key
+      // (the upper one's keys are all >= 16 and masked below)
+      if (kv > 8)
+        ffma_scores<HDP, BQ, 4, false>(s, A, B, cq, h);
+      else
+        ffma_scores<HDP, BQ, 2, false>(s, A, B, cq, h);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s1[i][j] = fmaf(a1[i], b1[j], s1[i][j]);
-          s2[i][j] = fmaf(a2[i], b2[j], s2[i][j]);
-        }
+        for (int jj = 0; jj < 4; ++jj)
+          x[i][jj] = s[i][jj] + __shfl_xor_sync(0xffffffffu, s[i][jj], 16);
     }
 
-    float c1[4], c2[4];
-    online_softmax(s1, m1, l1, c1, kv, tx);
-    online_softmax(s2, m2, l2, c2, kv, tx);
+    // online softmax in the log2 domain; a row's 32 keys lie on the 8 lanes
+    // of its row group (xor 1, 2, 16)
+    if (kv < kFK) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int jj = 0; jj < 4; ++jj)
+        if (cq + 4 * jj + 16 * h >= kv)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) x[i][jj] = -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float mt = fmaxf(fmaxf(x[i][0], x[i][1]), fmaxf(x[i][2], x[i][3]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
+      const float mn = fmaxf(m[i], mt);  // finite: key 0 of every tile is valid
+      const float corr = fast_exp2(m[i] - mn);  // 0 at the first tile (m = -inf)
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        x[i][jj] = fast_exp2(x[i][jj] - mn);
+        sum += x[i][jj];
+      }
+      l[i] = l[i] * corr + sum;  // this lane's 4 keys; the 8 lanes' sums meet at the end
+      m[i] = mn;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        o1[i][c] *= c1[i];
-        o2[i][c] *= c2[i];
+        o[i][c].x *= corr;
+        o[i][c].y *= corr;
+        o[i][c].z *= corr;
+        o[i][c].w *= corr;
       }
+    }
 
-    __syncthreads();  // every thread is done reading Qk / Kk
-    float* P1 = Qk;
-    float* P2 = Kk;
+    // P^T into this warp's own tile: row = key, 8 query rows per store pair
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int jj = 0; jj < 4; ++jj) {
+      float* dst = P + (cq + 4 * jj + 16 * h) * kPP + prow;
+      *reinterpret_cast<float4*>(dst) = make_float4(x[0][jj], x[1][jj], x[2][jj], x[3][jj]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4][jj], x[5][jj], x[6][jj], x[7][jj]);
+    }
+    __syncwarp();
+
+    // O += P V over the valid keys only
+    auto pv = [&](int j) {
+      const float4 p0 = ld4(P + j * kPP + prow), p1 = ld4(P + j * kPP + prow + 4);
+      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        P1[(tx + 16 * j) * kLD + ty * 4 + i] = s1[i][j];
-        P2[(tx + 16 * j) * kLD + ty * 4 + i] = s2[i][j];
+      for (int c = 0; c < NC; ++c) {
+        const float4 vv = ld4(V + j * HDP + 4 * cg + 32 * c);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          o[i][c].x = fmaf(p[i], vv.x, o[i][c].x);
+          o[i][c].y = fmaf(p[i], vv.y, o[i][c].y);
+          o[i][c].z = fmaf(p[i], vv.z, o[i][c].z);
+          o[i][c].w = fmaf(p[i], vv.w, o[i][c].w);
+        }
       }
-    __syncthreads();
-
+    };
+    if (kv == kFK) {
+#pragma unroll
+      for (int j = 0; j < kFK; ++j) pv(j);
+    } else {
 #pragma unroll 2
-    for (int j = 0; j < kBK; ++j) {
-      float p1[4], p2[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p1[i] = P1[j * kLD + ty * 4 + i];
-        p2[i] = P2[j * kLD + ty * 4 + i];
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = Vs[j * HDP + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o1[i][c] = fmaf(p1[i], vv, o1[i][c]);
-          o2[i][c] = fmaf(p2[i], vv, o2[i][c]);
-        }
-      }
+      for (int j = 0; j < kv; ++j) pv(j);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
-    const float inv1 = 1.f / l1[i], inv2 = 1.f / l2[i];
+  for (int i = 0; i < 8; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 16);
+  }
+  // out = O1 / l1 + O2 / l2: the state-2 warps hand O2 / l2 to the state-1
+  // warps of the same rows through the (consumed) ring
+  __syncthreads();
+  float* X = ring;  // [BQ][KP]
+  if (state == 1 && active) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < hd)
-        out[base + (long long)row * D + d] =
-            egm::from_f32<T>(o1[i][c] * inv1 + o2[i][c] * inv2);
+    for (int i = 0; i < 8; ++i) {
+      const float inv = 1.f / l[i];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        *reinterpret_cast<float4*>(X + (32 * wr + 8 * rg + i) * KP + 4 * cg + 32 * c) =
+            make_float4(o[i][c].x * inv, o[i][c].y * inv, o[i][c].z * inv, o[i][c].w * inv);
+    }
+  }
+  __syncthreads();
+  if (state == 0) {
+    const bool vec_out = hd % 4 == 0;  // out is contiguous and 16-byte aligned
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 32 * wr + 8 * rg + i, row = q0 + r;
+      if (row >= S) continue;
+      const float inv = 1.f / l[i];
+      float* orow = out + ((long long)b * S + row) * D + (long long)head * hd;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int col = 4 * cg + 32 * c;
+        const float4 o2 = ld4(X + r * KP + col);
+        const float y[4] = {o[i][c].x * inv + o2.x, o[i][c].y * inv + o2.y,
+                            o[i][c].z * inv + o2.z, o[i][c].w * inv + o2.w};
+        if (vec_out && col < hd) {
+          *reinterpret_cast<float4*>(orow + col) = make_float4(y[0], y[1], y[2], y[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < hd) orow[col + e] = y[e];
+        }
+      }
     }
   }
 }
@@ -306,14 +490,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
       dst[r * PITCH + d] = ok ? src[(row0 + r) * ld + d] : __float2bfloat16_rn(0.f);
     }
   }
-}
-
-// 2^x by the special-function unit alone (ex2.approx: 2^-inf = 0, relative
-// error about 2^-22, far below the bf16 rounding of the weights)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // One online-softmax state of this warp's 16 query rows (q q^T or k k^T): m
@@ -663,21 +839,25 @@ bool grid_of(const Args& a, int bq, int* q_tiles, unsigned* blocks) {
   return n > 0 && n <= 2147483647LL;
 }
 
-template <typename T, int HDP>
-int launch_f32(const Args& a, cudaStream_t stream) {
-  constexpr int KEYR = (HDP > kBK ? HDP : kBK) * kLD;
-  constexpr int smem_bytes = (2 * HDP * kLD + 2 * KEYR + kBK * HDP) * (int)sizeof(float);
-  auto kern = csa_kernel<T, HDP>;
+template <int HDP>
+int launch_ffma(const Args& a, int vec, cudaStream_t stream) {
+  constexpr int smem_bytes = f32_smem_bytes(HDP);
+  auto kern = csa_ffma_kernel<HDP>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
+  // all of the SM's 228 KB as shared memory, so that the blocks fit side by side
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
   int q_tiles;
   unsigned blocks;
-  if (!grid_of(a, kBQ, &q_tiles, &blocks)) return (int)cudaErrorInvalidValue;
+  if (!grid_of(a, 32 * kFW, &q_tiles, &blocks)) return (int)cudaErrorInvalidValue;
   const float scale_log2e = 1.4426950408889634f / sqrtf((float)a.hd);
-  kern<<<blocks, kNT, smem_bytes, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out), a.S, a.H, a.hd, q_tiles, scale_log2e, a.st);
+  kern<<<blocks, 64 * kFW, smem_bytes, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.S, a.H, a.hd, q_tiles,
+      scale_log2e, a.st, vec);
   return (int)cudaGetLastError();
 }
 
@@ -721,12 +901,19 @@ int launch_mma(const Args& a, int vec, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Every row piece of a view on the 16-byte grid: base, row and batch strides
+// (in elements of `elem` bytes).
+bool on_grid(const void* p, long long row, long long batch, int elem) {
+  const int per = 16 / elem;
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && row % per == 0 && batch % per == 0;
+}
+
 }  // namespace
 
 // q, k, v: [B, S, H * hd] views of one dtype (0 float32, 1 bfloat16) with last
 // stride 1, row strides *_row and batch strides *_batch in elements; out:
-// contiguous [B, S, H * hd] of that dtype; hd <= 128.  float32 runs the
-// CUDA-core kernel, bfloat16 the tensor-core kernel.
+// contiguous [B, S, H * hd] of that dtype; hd <= 128.  float32 runs the FFMA
+// kernel, bfloat16 the tensor-core kernel.
 extern "C" int egm_csa_attention(const void* q, const void* k, const void* v, void* out, int B,
                                  int S, int H, int hd, long long q_row, long long q_batch,
                                  long long k_row, long long k_batch, long long v_row,
@@ -735,17 +922,17 @@ extern "C" int egm_csa_attention(const void* q, const void* k, const void* v, vo
   if (B <= 0 || S <= 0 || H <= 0 || hd <= 0 || hd > 128) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, out, B, S, H, hd, {q_row, q_batch, k_row, k_batch, v_row, v_batch}};
   if (dtype == egm::kFloat32) {
-    if (hd <= 32) return launch_f32<float, 32>(a, s);
-    if (hd <= 64) return launch_f32<float, 64>(a, s);
-    return launch_f32<float, 128>(a, s);
+    // 16-byte cp.async copies need every row piece on the 16-byte grid;
+    // otherwise a scalar loader fills the same tiles
+    const int vec = hd % 4 == 0 && on_grid(q, q_row, q_batch, 4) &&
+                    on_grid(k, k_row, k_batch, 4) && on_grid(v, v_row, v_batch, 4);
+    if (hd <= 32) return launch_ffma<32>(a, vec, s);
+    if (hd <= 64) return launch_ffma<64>(a, vec, s);
+    return launch_ffma<128>(a, vec, s);
   }
   if (dtype == egm::kBFloat16) {
-    // 16-byte copies need every row piece on the 16-byte grid
-    const auto on_grid = [](const void* p, long long row, long long batch) {
-      return reinterpret_cast<uintptr_t>(p) % 16 == 0 && row % 8 == 0 && batch % 8 == 0;
-    };
-    const int vec = hd % 8 == 0 && on_grid(q, q_row, q_batch) && on_grid(k, k_row, k_batch) &&
-                    on_grid(v, v_row, v_batch);
+    const int vec = hd % 8 == 0 && on_grid(q, q_row, q_batch, 2) &&
+                    on_grid(k, k_row, k_batch, 2) && on_grid(v, v_row, v_batch, 2);
     // a tensor map wants rows that do not overlap and batches that do not either
     const auto spread = [&](long long row, long long batch) {
       return row >= (long long)H * hd && (B == 1 || batch >= S * row);

@@ -8,15 +8,24 @@ shape [B, S, D] and ``num_heads`` heads of width hd = D / num_heads,
 
 with float32 scores, softmaxes and sums.  The CUDA kernels
 (``csrc/csa_attention.cu``) read q, k, v where they lie, one block per
-(batch, head, 64-query tile) with two online-softmax accumulators, so no
-[S, S] tensor is stored.  q, k and v may be strided views with last stride 1
-(the three ``chunk`` views of a fused ``in_proj`` output); the result is
-contiguous.  The tensor-core rate bounds the work at the path's shape.
-``csa_variant`` names the kernel a dtype gets: bfloat16 multiplies on the
-tensor cores (``mma.sync`` on bf16 tiles filled by the TMA unit or by
-``cp.async``, the weights rounded to bf16 in registers before they meet v, as
-in ``csa_plain``);
-float32 stays on the CUDA cores, which hold 1e-4 relative (see PERF.md).
+(batch, head, query tile) with two online-softmax accumulators, so no [S, S]
+tensor is stored.  q, k and v may be strided views with last stride 1 (the
+three ``chunk`` views of a fused ``in_proj`` output); the result is
+contiguous.  ``csa_variant`` names the kernel a dtype gets:
+
+- bfloat16, ``"mma_bf16"``: the tensor cores (``mma.sync`` on bf16 tiles
+  filled by the TMA unit or by ``cp.async``, the weights rounded to bf16 in
+  registers before they meet v, as in ``csa_plain``); the tensor-core rate
+  bounds the work at the path's shape.
+- float32, ``"ffma_f32"``: FFMA on the CUDA cores, in full float32, which
+  holds 1e-4 relative (TF32 would not).  Its bound is 6*B*H*S^2*hd FLOP over
+  67 TFLOP/s: 1.035 ms at [64, 485, 768], 0.0854 ms at [32, 197, 768].  Each
+  thread's register tiles (8 query rows x 8 keys, 8 rows x 8 columns of the
+  output) take 4 FFMAs per float read from shared memory by 16-byte loads;
+  the key tiles arrive by 16-byte ``cp.async`` in a two-stage ring while the
+  previous one is multiplied; and a warp of 32 query rows past S idles while
+  the ragged last key step runs over its valid keys, so that S = 197 and 485
+  pad little (``csa_f32_tiles``, ``csa_f32_flops``).
 
 ``csa_attention`` launches the kernel for CUDA tensors and runs ``csa_plain``
 for CPU tensors; nothing falls back from one to the other.  It is
@@ -49,10 +58,71 @@ _L = ctypes.c_longlong
 
 def csa_variant(dtype: torch.dtype) -> str:
     """The kernel ``csa_attention`` launches for CUDA tensors of ``dtype``:
-    ``"mma_bf16"`` (tensor cores) or ``"cuda_cores_f32"``."""
+    ``"mma_bf16"`` (tensor cores) or ``"ffma_f32"`` (CUDA cores)."""
     if dtype not in DTYPE_CODES:
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
-    return "mma_bf16" if dtype == torch.bfloat16 else "cuda_cores_f32"
+    return "mma_bf16" if dtype == torch.bfloat16 else "ffma_f32"
+
+
+# The float32 kernel's walk (csrc/csa_attention.cu, csa_ffma_kernel): a warp
+# holds 32 query rows of one state, so a block of four warps holds
+# F32_QUERY_TILE rows, and a warp whose rows all lie past S does no arithmetic;
+# keys go F32_KEY_TILE a step (its lanes' layout), and the ragged last step
+# scores its keys in groups of 8, 16 or 32.
+F32_QUERY_TILE = 64
+F32_KEY_TILE = 32
+
+
+def head_pad(hd: int) -> int:
+    """The head width a kernel template rounds ``hd`` up to (32, 64 or 128);
+    the columns past hd are zeros in shared memory."""
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head width {hd} not in 1..{MAX_HEAD_DIM}")
+    return 32 if hd <= 32 else 64 if hd <= 64 else 128
+
+
+def csa_f32_tiles(s: int, hd: int) -> tuple:
+    """``(query rows, keys)`` a block of the float32 kernel takes per tile and
+    per step, for sequence length ``s`` and head width ``hd``: 64 query rows
+    (four warps, two blocks an SM at hd <= 64) and 32 keys.  S fits the work,
+    not the tile: rows pad to 32, since a warp past S idles, and the ragged
+    last key step scores 8, 16 or 32 keys (``f32_keys_scored``); hd only
+    bounds it (``head_pad``)."""
+    head_pad(hd)
+    if s <= 0:
+        raise ValueError(f"sequence length {s} must be positive")
+    return F32_QUERY_TILE, F32_KEY_TILE
+
+
+def f32_keys_scored(s: int) -> int:
+    """Keys whose scores the float32 kernel computes for sequence length s:
+    every full step's 32, and the ragged last step's valid keys rounded up to
+    8, 16 or 32 (P V runs over the valid keys only)."""
+    full, rest = divmod(s, F32_KEY_TILE)
+    return full * F32_KEY_TILE + (0 if rest == 0 else 8 if rest <= 8 else
+                                  16 if rest <= 16 else F32_KEY_TILE)
+
+
+def csa_f32_smem(hd: int) -> int:
+    """Dynamic shared memory of a float32 block, in bytes: the query side's q
+    and k rows transposed ([2][hdp][64]), two ring stages of the key tile (q
+    and k rows at pitch hdp + 4, v rows at pitch hdp) and one P tile per warp
+    ([32 keys][36])."""
+    hdp = head_pad(hd)
+    stage = 2 * F32_KEY_TILE * (hdp + 4) + F32_KEY_TILE * hdp
+    return 4 * (2 * hdp * F32_QUERY_TILE + 2 * stage
+                + 2 * (F32_QUERY_TILE // 32) * F32_KEY_TILE * 36)
+
+
+def csa_f32_flops(s: int, hd: int) -> tuple:
+    """``(walk, executed)`` FLOPs of the float32 kernel per (batch, head): the
+    walk's two states each run a score product and a P V product, 8 * S^2 *
+    hd unpadded; executed counts the query rows of the warps that work (S
+    rounded up to 32), the scored keys and the padded head width."""
+    rows = -(-s // 32) * 32
+    hdp = head_pad(hd)
+    executed = 2 * 2 * rows * hdp * (f32_keys_scored(s) + s)
+    return 8.0 * s * s * hd, float(executed)
 
 
 def _check(q, k, v, num_heads):

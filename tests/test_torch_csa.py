@@ -139,7 +139,7 @@ def test_csa_gradients_flow_through_views():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_csa_variant(dtype):
-    want = {torch.float32: "cuda_cores_f32", torch.bfloat16: "mma_bf16"}[dtype]
+    want = {torch.float32: "ffma_f32", torch.bfloat16: "mma_bf16"}[dtype]
     assert csa.csa_variant(dtype) == want
     with pytest.raises(TypeError):
         csa.csa_variant(torch.float16)

@@ -46,6 +46,17 @@ shapes the main paths give it, and drives the main paths at full width:
   (``text_kernel_records``); and an RN50-width CLIP's ``encode_image`` at
   batch 32 (``clip_resnet``, no hand-written kernel).
 
+- data parallel (``egm_unet_torch/parallel``), last: the train step and
+  ``cli/train_longclip.py``'s step under an NCCL group of one (the card's
+  one GPU) at the ``train`` and ``train_longclip`` configurations, bit for
+  bit against the one-process steps, with ms per step, collectives per step
+  and a profiled step (``dp_train``, ``dp_longclip``); and two ranks that
+  share the card over gloo (``dp_two_ranks_card``): egm_unet base_c 8 in
+  float32 one step and one --grad-accum 2 step held against one process on
+  the whole batch at ``dryrun_multichip``'s bounds, the full-width bf16 step
+  timed, and a tiny Long-CLIP's loss and gradient norm across the two ranks
+  held against one process with the PCA proxy per rank block.
+
 It then checks the card against the CPU on small inputs, for the UNets on
 every route and for a small CLIPSeg, for one training step, for one step of
 each text trainer and K6's backward (``text_train_card_vs_cpu``) and for a
@@ -88,6 +99,7 @@ import contextlib
 import http.client
 import io
 import json
+import math
 import re
 import shutil
 import statistics
@@ -120,10 +132,13 @@ from egm_unet_torch.data.loader import (BatchLoader, DevicePrefetcher,
 from egm_unet_torch.data.synthetic import SyntheticTPDataset, synthetic_tp_sample
 from egm_unet_torch.data.transforms import (TP_MEAN, TP_STD, TrainTransform,
                                             normalize, resize_short_side)
-from egm_unet_torch.engine import create_train_state, make_train_step, warmup_poly_schedule
+from egm_unet_torch.engine import (create_train_state, make_train_step, make_train_step_accum,
+                                   warmup_poly_schedule)
 from egm_unet_torch.engine.clipseg_train import create_clipseg_state, make_clipseg_train_step
 from egm_unet_torch.engine.longclip_train import (MAX_LOGIT_SCALE, create_longclip_state,
-                                                  make_longclip_train_step)
+                                                  cross_entropy_smoothed,
+                                                  make_longclip_loss_fn,
+                                                  make_longclip_train_step, pca_reconstruct)
 from egm_unet_torch.models import create_model
 from egm_unet_torch.models.clip.model import CLIP, VIT_B16, CLIPConfig
 from egm_unet_torch.models.clipseg import CLIPDensePredT
@@ -133,6 +148,7 @@ from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU, DoubleConv, cast_wei
 from egm_unet_torch.ops.cuda import (build, conv3x3, csa, launch_counts, mca,
                                      reset_launch_counts, resize2x, upconv)
 from egm_unet_torch.ops.quant import QUANT_MODES, SHIP_QSTORE_SITES
+from egm_unet_torch.parallel import all_reduce_grads, launch, shard_batch
 from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_of
 from egm_unet_torch.utils.checkpoint import best_epoch, folded_state_dict, load_payload
 
@@ -522,6 +538,7 @@ def kernel_record(site: str, call, reps: int, **extra) -> dict:
          "kernel_ms": time_ms(kfn, reps=reps), "device_ms": device_time_ms(kfn, reps=reps),
          "plain_ms": time_ms(pfn, reps=reps // 2),
          "library_ms": None if lfn is None else time_ms(lfn, reps=reps),
+         "library_device_ms": None if lfn is None else device_time_ms(lfn, reps=reps),
          "bound_ms": t_bound, "bound_by": by, "bytes": nb, "flops": flops}
     emit(r)
     check(err <= tol, f"{name} {r['dtype']} at {site}: max abs err {err} > tol {tol}")
@@ -942,11 +959,14 @@ def phase_predict_cli(dev) -> dict:
     return rec
 
 
-def phase_profile(phase: str, forward, out_name: str, patterns: dict) -> dict:
+def phase_profile(phase: str, forward, out_name: str, patterns: dict,
+                  host: dict = None, require: bool = True) -> dict:
     """Device time of one call of ``forward`` by kernel, from torch.profiler;
     ``patterns`` names the kernels whose time and launches are summed by
-    substring.  A pattern that matches no launch fails the run, so that a
-    renamed kernel cannot drop out of the sums unseen."""
+    substring.  A pattern that matches no launch fails the run (unless not
+    ``require``), so that a renamed kernel cannot drop out of the sums
+    unseen.  ``host`` names host ranges (``record_function`` names, by
+    prefix) whose host time and calls are summed."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -955,8 +975,10 @@ def phase_profile(phase: str, forward, out_name: str, patterns: dict) -> dict:
         forward()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, host_rows = [], []
     for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host_rows.append((e.cpu_time_total / 1e3, e.count, e.key))
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
@@ -968,7 +990,7 @@ def phase_profile(phase: str, forward, out_name: str, patterns: dict) -> dict:
                  for name, pat in patterns.items()}
     calls = {name: sum(r[1] for r in rows if pat in r[2]) for name, pat in patterns.items()}
     missing = [f"{name} ({pat})" for name, pat in patterns.items() if not calls[name]]
-    check(not missing, f"{phase}: no launch matched {missing}")
+    check(not (require and missing), f"{phase}: no launch matched {missing}")
     (OUT_DIR / out_name).write_text(
         f"wall {wall_ms:.3f} ms, device {device_ms:.3f} ms\n"
         + "\n".join(f"{ms:10.3f} ms {n:5d}x  {k}" for ms, n, k in rows) + "\n")
@@ -977,6 +999,9 @@ def phase_profile(phase: str, forward, out_name: str, patterns: dict) -> dict:
            "by_kernel_ms": by_kernel, "by_kernel_launches": calls,
            "launches": sum(r[1] for r in rows),
            "top": [{"ms": ms, "calls": n, "name": k[:80]} for ms, n, k in rows[:8]]}
+    for name, prefix in (host or {}).items():
+        rec[f"host_{name}_ms"] = sum(r[0] for r in host_rows if r[2].startswith(prefix))
+        rec[f"host_{name}_calls"] = sum(r[1] for r in host_rows if r[2].startswith(prefix))
     emit(rec)
     return rec
 
@@ -2180,11 +2205,312 @@ def phase_clip_resnet(dev) -> dict:
         check(r["max_abs_diff"] <= r["tol"], f"clip_resnet {key}: card vs CPU {r}")
     return launches
 
+# ------------------------------------------------------------ data parallel
+
+# two ranks share the card over gloo (NCCL takes one GPU a rank); the held
+# checks run egm_unet at base_c 8, batch 4 (8 with --grad-accum 2), 64x64,
+# float32, one step at 5e-4 without warm-up, as tests/test_torch_dp_train.py
+DP_SMALL_BASE_C, DP_SMALL_SIZE, DP_SMALL_LR = 8, 64, 5e-4
+DP_TIMED = 5  # full-width two-rank steps timed after TRAIN_WARM
+DP_LONGCLIP_STEPS = 4
+
+
+def dp_small_batch(batch: int) -> tuple:
+    rng = np.random.default_rng(SEED + 9)
+    images = rng.standard_normal((batch, DP_SMALL_SIZE, DP_SMALL_SIZE, 3)).astype(np.float32)
+    targets = rng.integers(0, 2, (batch, DP_SMALL_SIZE, DP_SMALL_SIZE)).astype(np.int64)
+    targets[rng.random(targets.shape) < 0.05] = 255
+    return torch.from_numpy(images), torch.from_numpy(targets)
+
+
+def dp_small_step(group, batch: tuple, accum: int) -> tuple:
+    """One float32 step of the small egm_unet on ``batch`` (global; this
+    rank's rows with a group): the loss and the state on the CPU."""
+    images, targets = shard_batch(group, *batch, accum=accum)
+    model = create_model("egm_unet", num_classes=2, base_c=DP_SMALL_BASE_C, fold_bn=False,
+                         generator=torch.Generator().manual_seed(SEED)).cuda()
+    state = create_train_state(model, warmup_poly_schedule(DP_SMALL_LR, 5, 3, warmup=False))
+    kw = dict(input_dtype=torch.float32, group=group)
+    step = make_train_step_accum(accum, **kw) if accum > 1 else make_train_step(**kw)
+    state, aux = step(state, images.cuda(), targets.cuda())
+    return aux["loss"].item(), {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def dp_tiny_clip():
+    return init_weights(CLIP(tiny_clip_config(64)), torch.Generator().manual_seed(SEED)).cuda()
+
+
+def dp_tiny_clip_batch() -> tuple:
+    gen = torch.Generator().manual_seed(SEED + 10)
+    cfg = tiny_clip_config(64)
+    return (torch.randn(8, 64, 64, 3, generator=gen),
+            *(torch.randint(1, cfg.vocab_size - 1, (8, cfg.context_length), generator=gen)
+              for _ in range(2)))
+
+
+def grad_norm(params, scale: float = 1.0) -> float:
+    return math.sqrt(sum((p.grad.double() * scale).pow(2).sum().item() for p in params))
+
+
+def dp_card_rank(group) -> dict:
+    """One of two ranks sharing the card over gloo (CUDA tensors): the
+    small egm_unet's step and its --grad-accum 2 step, the tiny Long-CLIP's
+    loss across the ranks and gradient norm, and the full-width bf16 step
+    (egm_unet base_c 32, global batch 8, 480x480) timed."""
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"step": dp_small_step(group, dp_small_batch(4), 1),
+           "accum2": dp_small_step(group, dp_small_batch(8), 2)}
+    model = dp_tiny_clip()
+    image, tl, ts = (t.cuda() for t in shard_batch(group, *dp_tiny_clip_batch()))
+    reset_launch_counts()
+    loss = make_longclip_loss_fn(group=group)(model, image, tl, ts)
+    loss.backward()
+    params = list(model.parameters())
+    total = all_reduce_grads(params, group, loss.detach())[0] / group.world
+    out["longclip"] = {"loss": total.item(), "grad_norm": grad_norm(params, 1 / group.world),
+                       "k6_launches": launch_counts()["csa_attention"]}
+    del model, params
+    batches = [shard_batch(group, x, t) for x, t in train_batches(2)]
+    state = train_state(BASE_C)
+    step = make_train_step(input_dtype=torch.bfloat16, group=group)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(TRAIN_WARM + DP_TIMED):
+        x, t = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = step(state, x, t)
+        losses.append(aux["loss"].item())
+        if i >= TRAIN_WARM:
+            times.append((time.perf_counter() - t0) * 1e3)
+    out["full"] = {"ms_per_step_runs": times, "losses": losses,
+                   "collectives": group.collectives,
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    return out
+
+
+def longclip_oracle(model, batch: tuple, world: int) -> tuple:
+    """One process's loss over the whole batch with the PCA proxy taken per
+    block of ``batch / world`` rows, as the ranks take it (the JAX
+    package's ``dryrun_multichip`` oracle); (loss, gradient norm)."""
+    image, tl, ts = (t.cuda() for t in batch)
+    norm = lambda t: t / torch.linalg.norm(t, dim=1, keepdim=True)  # noqa: E731
+    img_l, txt_l, txt_s = (norm(f.float()) for f in (
+        model.encode_image(image), model.encode_text(tl), model.encode_text(ts)))
+    img_s = torch.cat([pca_reconstruct(c, 32) for c in img_l.chunk(world)])
+    scale = torch.exp(model.logit_scale)
+    tgt = torch.arange(image.shape[0], device=image.device)
+    ce = lambda s: cross_entropy_smoothed(s, tgt)  # noqa: E731
+    l_long = (ce(scale * img_l @ txt_l.T) + ce((scale * (img_l @ txt_l.T)).T)) / 2
+    l_short = (ce(scale * img_s @ txt_s.T) + ce((scale * (img_s @ txt_s.T)).T)) / 2
+    loss = l_long + 0.1 * l_short
+    loss.backward()
+    return loss.item(), grad_norm(model.parameters())
+
+
+def phase_dp_two_ranks_card(dev) -> dict:
+    """Two ranks sharing the one H100 over gloo, against one process on the
+    whole batch on the same card: the small egm_unet's float32 step and its
+    --grad-accum 2 step held at dryrun_multichip's bounds (loss 1e-5
+    relative, parameters 1e-4); the full-width bf16 step run and timed, not
+    held.  Returns the tiny Long-CLIP's two-rank results for
+    ``dp_longclip``."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(dp_card_rank, 2, "gloo")
+    wall = time.perf_counter() - t0
+    rec = {"phase": "dp_two_ranks_card", "backend": "gloo", "tensors": "cuda",
+           "ranks": 2, "devices": 1, "wall_s": wall, "tf32": False, "card": dev["nvidia_smi"]}
+    for case, batch, accum in (("step", 4, 1), ("accum2", 8, 2)):
+        loss1, state1 = dp_small_step(None, dp_small_batch(batch), accum)
+        (loss0, state0), (loss_r1, state_r1) = ranks[0][case], ranks[1][case]
+        rec[case] = {
+            "model": "egm_unet", "base_c": DP_SMALL_BASE_C, "batch": batch, "accum": accum,
+            "crop": DP_SMALL_SIZE, "dtype": "float32", "loss_dp": loss0, "loss_one": loss1,
+            "loss_rel_diff": abs(loss0 - loss1) / abs(loss1),
+            "params_max_abs_diff": max((state0[k] - v).abs().max().item()
+                                       for k, v in state1.items()),
+            "ranks_identical": loss0 == loss_r1 and all(torch.equal(state0[k], state_r1[k])
+                                                        for k in state0)}
+    full = [r["full"] for r in ranks]
+    rec["full"] = {"model": "egm_unet", "base_c": BASE_C, "batch": TRAIN_BATCH,
+                   "crop": TRAIN_CROP, "dtype": "bfloat16", "steps_warm": TRAIN_WARM,
+                   "steps_timed": DP_TIMED, "ms_per_step": statistics.median(full[0]["ms_per_step_runs"]),
+                   **{f"rank{i}": f for i, f in enumerate(full)}}
+    rec["full"]["img_per_s"] = TRAIN_BATCH / rec["full"]["ms_per_step"] * 1e3
+    emit(rec)
+    for case in ("step", "accum2"):
+        r = rec[case]
+        check(r["loss_rel_diff"] <= 1e-5, f"dp_two_ranks_card {case}: loss {r}")
+        check(r["params_max_abs_diff"] < 1e-4, f"dp_two_ranks_card {case}: params {r}")
+        check(r["ranks_identical"], f"dp_two_ranks_card {case}: the ranks parted")
+    check(all(np.isfinite(f["losses"]).all() for f in full), "dp_two_ranks_card: full losses")
+    return [r["longclip"] for r in ranks]
+
+
+def timed_runs(groups: dict, make_step, make_state, batches, n: int) -> dict:
+    """``n`` steps of a fresh state for each entry of ``groups`` (name ->
+    None, one process, or a ``DataGroup``), their steps taken in turns (A B,
+    B A, A B, ...): CUDA-event ms of each, losses, collectives, kernel
+    launches (by difference, as the runs share the counters) and the state
+    after, on the card."""
+    runs = {name: {"group": g, "state": make_state(), "step": make_step(g), "losses": [],
+                   "times": [], "collectives": 0, "launches": dict.fromkeys(SOURCES, 0)}
+            for name, g in groups.items()}
+    order = list(runs)
+    reset_launch_counts()
+    for i in range(n):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            r = runs[name]
+            before = (0 if r["group"] is None else r["group"].collectives, launch_counts())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            r["state"], aux = r["step"](r["state"], *batches[i % len(batches)])
+            end.record()
+            end.synchronize()
+            r["times"].append(start.elapsed_time(end))
+            r["losses"].append(aux["loss"].item())
+            if r["group"] is not None:
+                r["collectives"] += r["group"].collectives - before[0]
+            r["launches"] = {k: v + launch_counts()[k] - before[1][k]
+                             for k, v in r["launches"].items()}
+    for r in runs.values():
+        r["after"] = {k: v.detach().clone() for k, v in r["state"].model.state_dict().items()}
+    return runs
+
+
+def same_bits(a: dict, b: dict) -> list:
+    """The keys where two runs' losses or states differ in any bit."""
+    bad = [] if a["losses"] == b["losses"] else ["losses"]
+    return bad + [k for k in a["after"] if not torch.equal(a["after"][k], b["after"][k])]
+
+
+def dp_train_world1(group, dev) -> dict:
+    """The data-parallel train step under an NCCL group of one at
+    phase_train's configuration (egm_unet base_c 32, bf16, batch 8, 480x480,
+    3 warm-up and 10 timed steps) beside the one-process step from the same
+    state and batches, their steps in turns: bit for bit (cuDNN's
+    deterministic algorithms in both), ms per step, collectives per step,
+    and their time in one profiled step (``dp_train_profile.txt``)."""
+    batches = train_batches(4)
+    n = TRAIN_WARM + TRAIN_TIMED
+    make_step = lambda g: make_train_step(input_dtype=torch.bfloat16, group=g)  # noqa: E731
+    make_state = lambda: train_state(BASE_C)  # noqa: E731
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = timed_runs({"plain": None, "dp": group}, make_step, make_state, batches, n)
+        plain, dp = runs["plain"], runs["dp"]
+        x, t = batches[0]
+        before = group.collectives
+        prof = phase_profile("dp_train_profile", lambda: dp["step"](dp["state"], x, t),
+                             "dp_train_profile.txt", {"nccl": "nccl"}, host={"nccl": "nccl:"},
+                             require=False)
+        profiled = group.collectives - before
+        differ = same_bits(plain, dp)
+        del runs, plain["state"], dp["state"]
+        if differ:  # is the one-process step itself reproducible?
+            again = timed_runs({"plain": None}, make_step, make_state, batches, n)["plain"]
+            reproducible = not same_bits(plain, again)
+        else:
+            reproducible = True
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rec = {"phase": "dp_train", "backend": "nccl", "world": group.world,
+           "model": "egm_unet", "base_c": BASE_C, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+           "dtype": "bfloat16", "cudnn_deterministic": True, "in_turns": True,
+           "steps_warm": TRAIN_WARM, "steps_timed": TRAIN_TIMED,
+           "ms_per_step": statistics.median(dp["times"][TRAIN_WARM:]),
+           "plain_ms_per_step": statistics.median(plain["times"][TRAIN_WARM:]),
+           "ms_per_step_runs": dp["times"][TRAIN_WARM:],
+           "plain_ms_per_step_runs": plain["times"][TRAIN_WARM:],
+           "collectives_per_step": dp["collectives"] / n, "collectives_profiled_step": profiled,
+           "nccl_device_ms": prof["by_kernel_ms"]["nccl"],
+           "nccl_kernels": prof["by_kernel_launches"]["nccl"],
+           "nccl_host_ms": prof["host_nccl_ms"],
+           "nccl_host_calls": prof.get("host_nccl_calls"),
+           "profiled_step_device_ms": prof["device_ms"], "profiled_step_wall_ms": prof["wall_ms"],
+           "losses": dp["losses"], "bit_identical": not differ, "differ": differ[:10],
+           "plain_reproducible": reproducible, "launches": dp["launches"],
+           "card": dev["nvidia_smi"]}
+    emit(rec)
+    check(not differ, f"dp_train: world-1 step differs from the one-process step at "
+                      f"{differ[:5]} (one-process reproducible: {reproducible})")
+    check(not any(dp["launches"].values()), f"dp_train: kernels launched {dp['launches']}")
+    return dp["launches"]
+
+
+def dp_longclip_world1(group, dev, two_ranks: list) -> dict:
+    """cli/train_longclip.py's data-parallel step under an NCCL group of one
+    at phase_train_longclip's configuration (random ViT-B/16, batch 32,
+    float32, TF32 off) beside the one-process step, from one seed, their
+    steps in turns: bit for bit over 4 steps, ms per step after the first,
+    K6's launches; then the tiny Long-CLIP on
+    two ranks sharing the card (``dp_two_ranks_card``'s spawn) against one
+    process with the PCA proxy per rank block: the loss within 1e-4, the
+    gradient norm within 1e-3 relative (``dryrun_multichip``'s bars)."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    res, ctx = VIT_B16.image_resolution, VIT_B16.context_length
+    batches = [(torch.randn(LONGCLIP_BATCH, res, res, 3, generator=gen).cuda(),
+                *(torch.randint(1, VIT_B16.vocab_size - 1, (LONGCLIP_BATCH, ctx),
+                                generator=gen).cuda() for _ in range(2)))
+               for _ in range(DP_LONGCLIP_STEPS)]
+
+    def make_state():
+        model = init_weights(CLIP(VIT_B16), torch.Generator().manual_seed(SEED)).cuda()
+        return create_longclip_state(model, lr=1e-6, warmup_steps=2,
+                                     total_steps=LONGCLIP_STEPS)
+
+    make_step = lambda g: make_longclip_train_step(group=g)  # noqa: E731
+    runs = timed_runs({"plain": None, "dp": group}, make_step, make_state, batches,
+                      DP_LONGCLIP_STEPS)
+    plain, dp = runs["plain"], runs["dp"]
+    differ = same_bits(plain, dp)
+    del runs, plain["state"], dp["state"]
+    torch.cuda.empty_cache()
+
+    model = dp_tiny_clip()
+    loss1, gnorm1 = longclip_oracle(model, dp_tiny_clip_batch(), len(two_ranks))
+    two = two_ranks[0]
+    rec = {"phase": "dp_longclip", "backend": "nccl", "world": group.world,
+           "model": "CLIP(VIT_B16), random tower", "batch": LONGCLIP_BATCH, "dtype": "float32",
+           "tf32": False, "steps": DP_LONGCLIP_STEPS,
+           "ms_per_step_runs": dp["times"], "plain_ms_per_step_runs": plain["times"],
+           "ms_per_step": statistics.median(dp["times"][1:]),
+           "plain_ms_per_step": statistics.median(plain["times"][1:]),
+           "collectives_per_step": dp["collectives"] / DP_LONGCLIP_STEPS,
+           "in_turns": True,
+           "losses": dp["losses"], "bit_identical": not differ, "differ": differ[:10],
+           "launches": dp["launches"], "plain_launches": plain["launches"],
+           "two_ranks_card": {"backend": "gloo", "model": "tiny_clip_config(64)", "batch": 8,
+                              "loss_dp": two["loss"], "loss_one": loss1,
+                              "loss_abs_diff": abs(two["loss"] - loss1),
+                              "grad_norm_dp": two["grad_norm"], "grad_norm_one": gnorm1,
+                              "grad_norm_rel_diff": abs(two["grad_norm"] - gnorm1)
+                              / max(gnorm1, 1.0),
+                              "k6_launches_per_rank": [r["k6_launches"] for r in two_ranks]},
+           "card": dev["nvidia_smi"]}
+    emit(rec)
+    want = {k: n * DP_LONGCLIP_STEPS for k, n in PER_LONGCLIP_STEP.items()}
+    check(not differ, f"dp_longclip: world-1 step differs from the one-process step at "
+                      f"{differ[:5]}")
+    check(dp["launches"] == want, f"dp_longclip launches {dp['launches']} != {want}")
+    t = rec["two_ranks_card"]
+    check(t["loss_abs_diff"] < 1e-4, f"dp_longclip two ranks: loss {t}")
+    check(t["grad_norm_rel_diff"] < 1e-3, f"dp_longclip two ranks: gradient norm {t}")
+    check(all(n == 1 for n in t["k6_launches_per_rank"]), f"dp_longclip two ranks: K6 {t}")
+    return dp["launches"]
+
 
 def summary(records, main_paths: dict) -> list:
     """Per kernel: times summed over one forward's launches at the path shape
     (each shape's time times its sites per forward): ``ms`` with the host's
-    launch work (``time_ms``), ``device_ms`` without it (``device_time_ms``);
+    launch work (``time_ms``), ``device_ms`` without it (``device_time_ms``),
+    and the library yardstick both ways (``library_ms``,
+    ``library_device_ms``);
     launches from the main-path runs ``main_paths`` (phase -> its launch
     counts), whose counts were reset just before each."""
     fwd = f"batch {BATCH}, {BUCKET[0]}x{BUCKET[1]}, bf16"
@@ -2212,6 +2538,8 @@ def summary(records, main_paths: dict) -> list:
             "bound_ms": per_fwd("bound_ms"),
             "bound_by": "bytes" if t_bytes >= per_fwd("bound_ms") / 2 else "operations",
             "library_ms": None if path[0]["library_ms"] is None else per_fwd("library_ms"),
+            "library_device_ms": (None if path[0]["library_device_ms"] is None
+                                  else per_fwd("library_device_ms")),
             "per": per[name], "shapes": len(path),
             **({"variant": path[0]["variant"]} if "variant" in path[0] else {}),
             **(text_paths(records) if name == "csa_attention" else {})})
@@ -2223,7 +2551,7 @@ def text_paths(records) -> dict:
     CLIs' CLIPSeg forward and the text branch's two trainers), and the
     closed-form backward's times."""
     keys = ("site", "shape", "variant", "tile", "max_abs_err", "kernel_ms", "device_ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
     f32 = [{k: r[k] for k in keys} for r in records if r.get("phase") == "kernel"
            and r["name"] == "csa_attention" and r["dtype"] == "float32"]
     backward = [{k: r[k] for k in ("shape", "dtype", "ms", "plain_autograd_ms")}
@@ -2284,6 +2612,11 @@ def main() -> None:
     phase_text_train_card_vs_cpu()
     main_paths["clip_resnet"] = phase_clip_resnet(dev)
     mark("text_branch")
+    # data parallel: NCCL groups of one, and two ranks sharing the card over gloo
+    main_paths["dp_train"] = launch(dp_train_world1, 1, "nccl", dev)[0]
+    two_ranks = phase_dp_two_ranks_card(dev)
+    main_paths["dp_longclip"] = launch(dp_longclip_world1, 1, "nccl", dev, two_ranks)[0]
+    mark("data_parallel")
     kernels = summary(records, main_paths)
     emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t0})
     print(dev["nvidia_smi"])

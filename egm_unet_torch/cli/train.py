@@ -14,10 +14,22 @@ canvas on the device once, one index vector copied per step:
 ``data/device_cache.py``; it implies --device-aug).  Both draw each epoch's
 augmentation from a generator seeded by (seed, epoch), so --resume replays
 an uninterrupted run's draws on the cache path; both refuse
---steps-per-dispatch > 1.  --mesh-data / --mesh-spatial (multi-GPU) are not
-ported yet and exit with an error.
+--steps-per-dispatch > 1.
+
+--mesh-data N trains data-parallel (``parallel/``) on N ranks: N GPUs under
+NCCL (rank r on GPU r), or N processes on the CPU under gloo with --device
+cpu.  Its default is every visible GPU, and 1 on the CPU or with
+--device-cache, which is single-device and exits with a mesh, as in the JAX
+CLI.  --batch-size is the global batch; each rank loads and steps on its
+rows of it (by microbatch with --grad-accum), the BatchNorms and the loss
+reduce over the global batch, the eval set is split by batches and its
+metrics summed, and rank 0 alone prints, writes the results file and saves
+checkpoints.  --mesh-spatial (spatial parallelism) is not ported yet and
+exits.
 
     python -m egm_unet_torch.cli.train --synthetic --amp --epochs 2
+    python -m egm_unet_torch.cli.train --synthetic --device cpu --mesh-data 2 \
+        --base-c 8 --batch-size 4 --epochs 1
 """
 
 from __future__ import annotations
@@ -70,9 +82,10 @@ def parse_args(argv=None):
                         "one index vector per step (implies --device-aug)")
     p.add_argument("--eval-size", default=565, type=int)
     p.add_argument("--mesh-data", default=None, type=int,
-                   help="not ported yet (ROADMAP queue 1 item 9)")
+                   help="data-parallel ranks (default: every visible GPU; 1 "
+                        "on the CPU or with --device-cache)")
     p.add_argument("--mesh-spatial", default=1, type=int,
-                   help="not ported yet (ROADMAP queue 1 item 9)")
+                   help="not ported yet (ROADMAP queue 1 item 11)")
     p.add_argument("--save-dir", default="save_weights")
     p.add_argument("--save-every", default=100, type=int,
                    help="periodic checkpoint cadence in epochs (best-dice "
@@ -99,21 +112,62 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """Exit non-zero for the JAX CLI's flags whose modules are not ported,
-    and for --steps-per-dispatch > 1 with the device-side augmentation
-    (the multi-step stacks host batches)."""
+    """Exit non-zero for --mesh-spatial, whose module is not ported, and for
+    --steps-per-dispatch > 1 with the device-side augmentation (the
+    multi-step stacks host batches)."""
     if (args.device_aug or args.device_cache) and args.steps_per_dispatch > 1:
         raise SystemExit("--steps-per-dispatch > 1 needs host-side transforms; "
                          "drop --device-aug / --device-cache")
-    if args.mesh_data is not None or args.mesh_spatial != 1:
-        raise SystemExit("--mesh-data / --mesh-spatial: multi-GPU training is "
-                         "not ported yet (ROADMAP.md queue 1 item 9)")
+    if args.mesh_spatial != 1:
+        raise SystemExit("--mesh-spatial: spatial parallelism is not ported yet "
+                         "(ROADMAP.md queue 1 item 11)")
+
+
+def on_cpu(args) -> bool:
+    import torch
+
+    return args.device is not None and torch.device(args.device).type == "cpu"
+
+
+def data_world(args) -> int:
+    """The number of data-parallel ranks (--mesh-data, see the module
+    docstring); exits where the run cannot have them."""
+    import torch
+
+    cpu = on_cpu(args)
+    gpus = 0 if cpu else torch.cuda.device_count()
+    world = args.mesh_data
+    if world is None:
+        world = 1 if cpu or args.device_cache else max(1, gpus)
+    if world < 1:
+        raise SystemExit(f"--mesh-data {world}: at least 1")
+    if world > 1:
+        if args.device_cache:
+            raise SystemExit("--device-cache is single-device; drop --mesh-data")
+        if not cpu and world > gpus:
+            raise SystemExit(f"--mesh-data {world}: only {gpus} GPU(s) visible")
+        step = world * max(1, args.grad_accum)
+        if args.batch_size % step:
+            raise SystemExit(f"--batch-size {args.batch_size} must be divisible by "
+                             f"--mesh-data x --grad-accum = {step}")
+    return world
 
 
 def main(argv=None):
+    """Trains; returns ``{"epoch_losses", "best_dice"}`` (rank 0's with a
+    mesh)."""
     args = parse_args(argv)
     refuse_unported(args)
+    world = data_world(args)
+    if world == 1:
+        return train(None, args)
+    from egm_unet_torch.parallel import launch
 
+    return launch(train, world, "gloo" if on_cpu(args) else "nccl", args)[0]
+
+
+def train(group, args) -> dict:
+    """The run on one rank of ``group`` (None: one process)."""
     import torch
 
     from egm_unet_torch import metrics as M
@@ -130,13 +184,20 @@ def main(argv=None):
     from egm_unet_torch.device import resolve_device
     from egm_unet_torch.engine import (create_train_state, make_eval_step,
                                        make_train_multistep, make_train_step,
-                                       make_train_step_accum,
+                                       make_train_step_accum, reduce_eval,
                                        warmup_poly_schedule)
     from egm_unet_torch.models import create_model
+    from egm_unet_torch.parallel import rank_rows, replicated
     from egm_unet_torch.utils.checkpoint import CheckpointManager
     from egm_unet_torch.utils.logging import MetricLogger, ResultsWriter
 
     device = resolve_device(args.device)
+    rank, world = (0, 1) if group is None else (group.rank, group.world)
+    main_rank = rank == 0
+    say = print if main_rank else (lambda *a, **k: None)
+    if world > 1 and device.type == "cpu":
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
     num_classes = args.num_classes + 1
     dtype = torch.bfloat16 if args.amp else torch.float32
 
@@ -147,7 +208,9 @@ def main(argv=None):
         min_size, max_size = scale_range(src)
         train_tf = RawSource(src)
     else:
-        train_tf = TrainTransform(crop_size=crop, seed=args.seed,
+        # each rank its own stream of random crops and flips
+        train_tf = TrainTransform(crop_size=crop,
+                                  seed=args.seed if group is None else [args.seed, rank],
                                   wire_uint8=args.wire_uint8)
     val_tf = EvalTransform(args.eval_size, wire_uint8=args.wire_uint8)
     if args.synthetic:
@@ -164,9 +227,16 @@ def main(argv=None):
         train_ds = DriveDataset(args.data_path, train_tf, "train.txt")
         val_ds = DriveDataset(args.data_path, val_tf, "val.txt")
 
-    train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed)
+    accum = max(1, args.grad_accum)
+    if accum > 1 and args.batch_size % accum:
+        raise SystemExit(f"--batch-size {args.batch_size} must be divisible "
+                         f"by --grad-accum {accum}")
+    # this rank's rows of every global batch, by microbatch
+    rows = None if group is None else rank_rows(args.batch_size, rank, world, accum)
+    train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
+                               rows=rows)
     val_loader = BatchLoader(val_ds, args.val_batch_size, shuffle=False,
-                             drop_last=False, collate=collate_pad)
+                             drop_last=False, collate=collate_pad, shard=(rank, world))
 
     model = create_model(args.model, num_classes=num_classes, base_c=args.base_c,
                          fold_bn=False,
@@ -177,22 +247,21 @@ def main(argv=None):
     state = create_train_state(model, sched, momentum=args.momentum,
                                weight_decay=args.weight_decay)
 
-    ckpt = CheckpointManager(os.path.abspath(args.save_dir), period=args.save_every)
+    ckpt = CheckpointManager(os.path.abspath(args.save_dir), period=args.save_every,
+                             writer=main_rank)
     start_epoch = args.start_epoch
-    if args.resume:
-        restored = CheckpointManager(os.path.abspath(args.resume)).restore(state)
+    if args.resume:  # every rank restores
+        restored = CheckpointManager(os.path.abspath(args.resume),
+                                     writer=False).restore(state)
         start_epoch = restored["epoch"] + 1
-        print(f"resumed from epoch {restored['epoch']}")
+        say(f"resumed from epoch {restored['epoch']}")
+    replicated(state.model, group)
 
     k_steps = max(1, args.steps_per_dispatch)
     # the device augmentation normalizes; --wire-uint8 leaves it to the step
     norm = (TP_MEAN, TP_STD) if args.wire_uint8 and not device_aug else None
-    accum = max(1, args.grad_accum)
-    if accum > 1 and args.batch_size % accum:
-        raise SystemExit(f"--batch-size {args.batch_size} must be divisible "
-                         f"by --grad-accum {accum}")
     step_kw = dict(num_classes=num_classes, dice=not args.no_aux_losses,
-                   normalize=norm, input_dtype=dtype)
+                   normalize=norm, input_dtype=dtype, group=group)
     if k_steps > 1:
         train_step = make_train_multistep(accum=accum, **step_kw)
     elif accum > 1:
@@ -201,19 +270,21 @@ def main(argv=None):
         train_step = make_train_step(**step_kw)
     eval_step = make_eval_step(num_classes=num_classes, normalize=norm,
                                input_dtype=dtype)
-    results = ResultsWriter(args.results_file)
+    results = ResultsWriter(args.results_file, writer=main_rank)
 
     cache = None
     if args.device_cache:
         cache = DeviceDatasetCache(train_ds, src, TP_MEAN, TP_STD, crop, min_size,
                                    max_size, out_dtype=dtype, device=device)
-        print(f"device cache: {cache.n} samples, {cache.hbm_bytes / 1e6:.0f} MB "
-              f"on {device}")
+        say(f"device cache: {cache.n} samples, {cache.hbm_bytes / 1e6:.0f} MB "
+            f"on {device}")
 
     # the next batch is narrowed (bf16 images, uint8 masks) and copied from
     # pinned memory in a worker thread while the current step runs
     def prepare(batch):
         return to_device(narrow_for_transfer(batch[0], batch[1], dtype), device)
+
+    rows_dev = None if rows is None else torch.as_tensor(rows, device=device)
 
     def train_batches(epoch):
         """The epoch's device batches: from the cache, or the loader's
@@ -227,17 +298,19 @@ def main(argv=None):
         gen = epoch_generator(args.seed, epoch, device) if device_aug else None
         for images, targets in DevicePrefetcher(source, prepare):
             if gen is not None:
-                params = draw_params(gen, images.shape[0], src, crop, min_size,
-                                     max_size)
+                # the global batch's draws on every rank, this rank's rows
+                params = draw_params(gen, args.batch_size, src, crop, min_size,
+                                     max_size, rows=rows_dev)
                 images, targets = augment_with_params(
                     to_unit(images), targets, params, TP_MEAN, TP_STD, crop)
                 images = images.to(dtype)
             yield images, targets
 
     best_dice = -1.0
+    epoch_losses = []
     t_start = time.time()
     for epoch in range(start_epoch, args.epochs):
-        logger = MetricLogger()
+        logger = MetricLogger(writer=main_rank)
         # losses stay on the device and are read once per print window, so
         # that the host does not wait on every step
         pending = []
@@ -265,15 +338,17 @@ def main(argv=None):
         flush_pending()
         mean_loss = logger.meters["loss"].global_avg
         lr = logger.meters["lr"].value
+        epoch_losses.append(mean_loss)
 
         confmat = M.confmat_init(num_classes, device=device)
         dice = M.dice_init(device=device)
         for images, targets in DevicePrefetcher(val_loader, prepare):
             confmat, dice = eval_step(state, images, targets, confmat, dice)
+        confmat, dice = reduce_eval(confmat, dice, group)
         block = M.confmat_str(confmat.cpu())
         dice_val = float(dice.value)
-        print(block)
-        print(f"dice coefficient: {dice_val:.3f}")
+        say(block)
+        say(f"dice coefficient: {dice_val:.3f}")
         results.write_epoch(epoch, mean_loss, lr, block, dice_val)
 
         ckpt.maybe_save(epoch, args.epochs, state,
@@ -283,10 +358,11 @@ def main(argv=None):
         gc.collect()
 
     total = time.time() - t_start
-    print(f"training time {total / 3600:.2f}h; best dice {best_dice:.3f}")
+    say(f"training time {total / 3600:.2f}h; best dice {best_dice:.3f}")
     train_loader.close()
     val_loader.close()
     ckpt.close()
+    return {"epoch_losses": epoch_losses, "best_dice": best_dice}
 
 
 if __name__ == "__main__":

@@ -7,9 +7,14 @@ flags and checkpoints by ``utils/checkpoint.CheckpointManager``.
 ``--synthetic`` fine-tunes on random (image, long text, short text) triples,
 ``--synthetic-fixed N`` on a fixed pool of N of them (the pairings can be
 learnt, so the loss falls); real use reads ``--data-tsv`` (image path, long
-caption, short caption).  One process on one device: ``--mesh-data`` other
-than 1 (the loss across GPUs) is refused.  Runs on the current CUDA device
-unless ``--device cpu`` is given; with no GPU it refuses to start.
+caption, short caption).  Runs on the current CUDA device unless ``--device
+cpu`` is given; with no GPU it refuses to start.
+
+``--mesh-data N`` fine-tunes data-parallel on N ranks (default: every
+visible GPU; 1 on the CPU), N GPUs under NCCL or, with ``--device cpu``, N
+processes under gloo: every rank draws the same global batch of
+``--batch-size`` and keeps its rows, the loss gathers the features across
+ranks (``engine/longclip_train.py``), and rank 0 alone prints and saves.
 
     python -m egm_unet_torch.cli.train_longclip --synthetic --synthetic-fixed 64 --steps 10
 """
@@ -24,6 +29,7 @@ import torch
 
 from egm_unet_torch.engine.longclip_train import (create_longclip_state,
                                                   make_longclip_train_step)
+from egm_unet_torch.parallel import launch, replicated, shard_batch
 
 
 def parse_args(argv=None):
@@ -53,8 +59,8 @@ def parse_args(argv=None):
                         "demonstrably decreases")
     p.add_argument("--tiny-clip", action="store_true")
     p.add_argument("--mesh-data", default=None, type=int,
-                   help="one process only: values other than 1 wait for "
-                        "ROADMAP queue 1 item 9 (multi-GPU)")
+                   help="data-parallel ranks (default: every visible GPU; 1 "
+                        "on the CPU)")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--device", default=None,
                    help="default: the current CUDA device; 'cpu' runs on the CPU")
@@ -63,12 +69,30 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Fine-tunes and returns ``{"state", "losses", "save_dir"}``: the final
-    train state and every step's loss."""
+    train state and every step's loss; with a mesh rank 0's losses and
+    ``"state"`` its model's ``state_dict`` on the CPU."""
     args = parse_args(argv)
-    if args.mesh_data not in (None, 1):
-        raise SystemExit(f"--mesh-data {args.mesh_data}: the loss across GPUs is "
-                         "not ported yet (ROADMAP.md queue 1 item 9, multi-GPU)")
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    gpus = 0 if cpu else torch.cuda.device_count()
+    world = args.mesh_data or (1 if cpu else max(1, gpus))
+    if world == 1:
+        return fine_tune(None, args)
+    if not cpu and world > gpus:
+        raise SystemExit(f"--mesh-data {world}: only {gpus} GPU(s) visible")
+    if world < 1 or args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} must be divisible by "
+                         f"--mesh-data {world}")
+    return launch(_rank_fine_tune, world, "gloo" if cpu else "nccl", args)[0]
 
+
+def _rank_fine_tune(group, args) -> dict:
+    out = fine_tune(group, args)
+    out["state"] = {k: t.detach().cpu() for k, t in out["state"].model.state_dict().items()}
+    return out
+
+
+def fine_tune(group, args) -> dict:
+    """The run on one rank of ``group`` (None: one process)."""
     from egm_unet_torch.cli.eval_clipseg import tiny_clip_config
     from egm_unet_torch.device import resolve_device
     from egm_unet_torch.models.clip.model import CLIP, VIT_B16, CLIPConfig
@@ -76,6 +100,12 @@ def main(argv=None) -> dict:
     from egm_unet_torch.utils.checkpoint import CheckpointManager
 
     device = resolve_device(args.device)
+    main_rank = group is None or group.rank == 0
+    say = print if main_rank else (lambda *a, **k: None)
+    if group is not None and device.type == "cpu":
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // group.world))
+    # every rank draws the same global batches and keeps its rows
     rng = np.random.default_rng(args.seed)
 
     state_dict = None
@@ -87,21 +117,21 @@ def main(argv=None) -> dict:
         cfg_kw, state_dict = load_clip_checkpoint(args.clip_weights,
                                                   stretch_to_long=args.stretch)
         cfg = CLIPConfig(**cfg_kw)
-        print(f"loaded {args.clip_weights} (ctx {cfg.context_length})")
+        say(f"loaded {args.clip_weights} (ctx {cfg.context_length})")
     else:
         cfg = VIT_B16
-        print("WARNING: no checkpoint; fine-tuning a random tower")
+        say("WARNING: no checkpoint; fine-tuning a random tower")
 
     model = CLIP(cfg)
     if state_dict is None:
         init_weights(model, torch.Generator().manual_seed(args.seed))
     else:
         model.load_state_dict(state_dict)
-    model = model.to(device)
+    model = replicated(model.to(device), group)
     state = create_longclip_state(model, lr=args.lr, weight_decay=args.weight_decay,
                                   warmup_steps=args.warmup_steps,
                                   total_steps=args.steps)
-    step_fn = make_longclip_train_step(ratio_short=args.ratio_short)
+    step_fn = make_longclip_train_step(ratio_short=args.ratio_short, group=group)
     res, ctx, vocab = cfg.image_resolution, cfg.context_length, cfg.vocab_size
 
     def synthetic_batch():
@@ -138,18 +168,19 @@ def main(argv=None) -> dict:
                 yield np.stack(imgs), tl, ts
 
     batches = tsv_batches() if args.data_tsv else None
-    ckpt = CheckpointManager(os.path.abspath(args.save_dir), period=args.save_every)
+    ckpt = CheckpointManager(os.path.abspath(args.save_dir), period=args.save_every,
+                             writer=main_rank)
     losses = []
     for it in range(args.steps):
-        img, tl, ts = next(batches) if batches else synthetic_batch()
+        batch = shard_batch(group, *(next(batches) if batches else synthetic_batch()))
         state, aux = step_fn(state, *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                                      for a in (img, tl, ts)))
+                                      for a in batch))
         losses.append(aux["loss"])
         if it % args.print_freq == 0:
-            print(f"step {it}: loss {float(aux['loss']):.4f} lr {aux['lr']:.2e}")
+            say(f"step {it}: loss {float(aux['loss']):.4f} lr {aux['lr']:.2e}")
         ckpt.maybe_save(it, args.steps, state)
     ckpt.close()
-    print("done")
+    say("done")
     return {"state": state, "losses": [float(v) for v in losses],
             "save_dir": ckpt.directory}
 

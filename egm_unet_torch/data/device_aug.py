@@ -38,12 +38,15 @@ def to_unit(images_u8: torch.Tensor) -> torch.Tensor:
 
 def draw_params(generator: torch.Generator, b: int, short: int, crop_size: int,
                 min_size: int, max_size: int,
-                hw: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
+                hw: Optional[Tuple[int, int]] = None,
+                rows=None) -> Dict[str, torch.Tensor]:
     """Draws for ``b`` sources of size ``hw`` (default ``short`` x ``short``)
     on ``generator``'s device: ``sizes`` (the scaled short side, inclusive on
     both ends, as the reference's ``random.randint``), crop offsets ``oy``,
     ``ox`` (float32, uniform in the scaled image's room past the crop) and
-    the booleans ``hflip``, ``vflip`` (p 0.5)."""
+    the booleans ``hflip``, ``vflip`` (p 0.5).  ``rows``: only these of the
+    ``b`` draws (data parallel: every rank draws the global batch's from
+    one seed and keeps its own rows, ``parallel.rank_rows``)."""
     h, w = hw or (short, short)
     dev = generator.device
     sizes = torch.randint(min_size, max_size + 1, (b,), generator=generator,
@@ -55,7 +58,11 @@ def draw_params(generator: torch.Generator, b: int, short: int, crop_size: int,
     ox = torch.rand(b, generator=generator, device=dev) * max_ox
     hflip = torch.rand(b, generator=generator, device=dev) < 0.5
     vflip = torch.rand(b, generator=generator, device=dev) < 0.5
-    return {"sizes": sizes, "oy": oy, "ox": ox, "hflip": hflip, "vflip": vflip}
+    params = {"sizes": sizes, "oy": oy, "ox": ox, "hflip": hflip, "vflip": vflip}
+    if rows is not None:
+        idx = torch.as_tensor(rows, device=dev)
+        params = {k: v[idx] for k, v in params.items()}
+    return params
 
 
 def source_coords(params: Dict[str, torch.Tensor], short: int, crop_size: int):

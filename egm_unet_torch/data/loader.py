@@ -46,11 +46,17 @@ class BatchLoader:
     """Batches of ``dataset`` in an order shuffled by ``np.random.default_rng
     (seed)`` once per epoch (the JAX package's order for the same seed);
     ``drop_last`` drops a short last batch.  ``collate(images, targets)``
-    replaces ``np.stack``."""
+    replaces ``np.stack``.
+
+    Data parallel, every rank walks the same order and ``len()`` counts the
+    global batches; ``rows`` (``parallel.rank_rows``): the rank loads only
+    these rows of each global batch of ``batch_size``; ``shard=(rank,
+    world)``: the rank takes whole batches, every ``world``-th from its
+    ``rank``-th (the eval split)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, num_workers: int = 4,
-                 collate=None):
+                 collate=None, rows=None, shard=(0, 1)):
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -58,12 +64,16 @@ class BatchLoader:
         self.rng = np.random.default_rng(seed)
         self.pool = ThreadPoolExecutor(max_workers=num_workers)
         self.collate = collate
+        self.rows = rows
+        self.shard = shard
 
     def __len__(self):
         n = len(self.ds)
         return n // self.bs if self.drop_last else (n + self.bs - 1) // self.bs
 
     def _assemble(self, idxs):
+        if self.rows is not None:
+            idxs = idxs[self.rows]
         samples = list(self.pool.map(self.ds.__getitem__, idxs))
         images = [s[0] for s in samples]
         targets = [s[1] for s in samples]
@@ -75,9 +85,10 @@ class BatchLoader:
         order = np.arange(len(self.ds))
         if self.shuffle:
             self.rng.shuffle(order)
+        rank, world = self.shard
         yield from _in_background(
             (self._assemble(order[b * self.bs:(b + 1) * self.bs])
-             for b in range(len(self))), depth=2)
+             for b in range(rank, len(self), world)), depth=2)
 
     def close(self) -> None:
         self.pool.shutdown(wait=False)

@@ -19,4 +19,5 @@ from egm_unet_torch.engine.train import (  # noqa: F401
     make_train_multistep,
     make_train_step,
     make_train_step_accum,
+    reduce_eval,
 )

@@ -1,6 +1,5 @@
 """Long-CLIP contrastive fine-tune (port of
-``egm_unet_tpu/engine/longclip_train.py``, single process; the loss across
-GPUs with a differentiable all-gather waits for the multi-GPU slice).
+``egm_unet_tpu/engine/longclip_train.py``), on one process or data-parallel.
 
 The loss (ref: clip/model.py:572-614): image features (CSA in the last
 vision block, so kernel K6 runs forward and its closed-form backward),
@@ -14,16 +13,28 @@ The optimizer: AdamW (weight decay 1e-2 on every trainable parameter, as
 ``LambdaLR``.  ``positional_embedding`` is frozen (the JAX package's
 ``set_to_zero`` leaf; ``positional_embedding_res`` trains); after each step
 ``logit_scale`` is clamped at ln 100.
+
+Data parallel (``group``; the JAX package's ``shard_map`` over the mesh's
+``data`` axis): each rank encodes its rows of the global batch and takes the
+PCA proxy of its own rows; a differentiable all-gather
+(``parallel.all_gather``) brings every rank's image and text features to
+each; each rank's images are scored against every text and its texts
+against every image, with targets offset by ``rank * b``; the loss is the
+mean of the ranks' losses, so the summed gradients are divided by the world
+size.
 """
 
 from __future__ import annotations
 
 import math
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from egm_unet_torch.engine.state import TrainState
+from egm_unet_torch.parallel.mesh import DataGroup, all_gather, all_reduce_grads
 
 MAX_LOGIT_SCALE = math.log(100.0)  # upstream CLIP's post-step clamp
 FROZEN = ("positional_embedding",)
@@ -61,21 +72,32 @@ def longclip_contrastive_loss(image_features: torch.Tensor,
                               text_features_long: torch.Tensor,
                               text_features_short: torch.Tensor,
                               logit_scale: torch.Tensor, pca_dim: int = 32,
-                              label_smoothing: float = 0.1):
-    """``(loss_itcl, loss_itcs)`` of one process's batch (world size 1:
-    the gathered features are the local ones and the targets 0..b-1)."""
+                              label_smoothing: float = 0.1,
+                              group: Optional[DataGroup] = None):
+    """``(loss_itcl, loss_itcs)`` of this rank's rows: its images against
+    every rank's texts and its texts against every rank's images (without a
+    group the gathered features are the local ones and the targets
+    0..b-1)."""
     acc = torch.promote_types(image_features.dtype, torch.float32)
     img_long = _normalize(image_features.to(acc))
     txt_long = _normalize(text_features_long.to(acc))
     txt_short = _normalize(text_features_short.to(acc))
-    img_short = pca_reconstruct(img_long, pca_dim)
+    img_short = pca_reconstruct(img_long, pca_dim)  # over this rank's rows
+
+    if group is None:
+        gather, rank = (lambda t: t), 0
+    else:
+        gather, rank = (lambda t: all_gather(t, group)), group.rank
+    img_all_long, img_all_short = gather(img_long), gather(img_short)
+    txt_all_long, txt_all_short = gather(txt_long), gather(txt_short)
 
     scale = torch.exp(logit_scale)
-    sim_i2tl = scale * img_long @ txt_long.T
-    sim_tl2i = (scale * (img_long @ txt_long.T)).T
-    sim_i2ts = scale * img_short @ txt_short.T
-    sim_ts2i = (scale * (img_short @ txt_short.T)).T
-    targets = torch.arange(image_features.shape[0], device=image_features.device)
+    sim_i2tl = scale * img_long @ txt_all_long.T
+    sim_tl2i = (scale * (img_all_long @ txt_long.T)).T
+    sim_i2ts = scale * img_short @ txt_all_short.T
+    sim_ts2i = (scale * (img_all_short @ txt_short.T)).T
+    b = image_features.shape[0]
+    targets = rank * b + torch.arange(b, device=image_features.device)
 
     ce = lambda s: cross_entropy_smoothed(s, targets, label_smoothing)
     loss_itcl = (ce(sim_i2tl) + ce(sim_tl2i)) / 2
@@ -83,15 +105,17 @@ def longclip_contrastive_loss(image_features: torch.Tensor,
     return loss_itcl, loss_itcs
 
 
-def make_longclip_loss_fn(ratio_short: float = 0.1):
+def make_longclip_loss_fn(ratio_short: float = 0.1, group: Optional[DataGroup] = None):
     """``loss(model, image, text_long, text_short) -> scalar``:
-    ``loss_itcl + ratio_short * loss_itcs``."""
+    ``loss_itcl + ratio_short * loss_itcs`` (with ``group``: this rank's, on
+    its rows of the global batch)."""
 
     def loss_fn(model, image, text_long, text_short):
         img = model.encode_image(image)
         tl = model.encode_text(text_long)
         ts = model.encode_text(text_short)
-        l_long, l_short = longclip_contrastive_loss(img, tl, ts, model.logit_scale)
+        l_long, l_short = longclip_contrastive_loss(img, tl, ts, model.logit_scale,
+                                                    group=group)
         return l_long + ratio_short * l_short
 
     return loss_fn
@@ -148,12 +172,15 @@ def create_longclip_state(model: torch.nn.Module, lr: float = 1e-6,
                       lr_fn=sched)
 
 
-def make_longclip_train_step(ratio_short: float = 0.1):
+def make_longclip_train_step(ratio_short: float = 0.1,
+                             group: Optional[DataGroup] = None):
     """Returns ``step(state, image, text_long, text_short) -> (state, aux)``:
     the contrastive loss, one AdamW update, then ``logit_scale`` clamped at
     ln 100.  ``aux["loss"]`` stays a device tensor; ``aux["lr"]`` is the
-    schedule at the step count after the update."""
-    loss_fn = make_longclip_loss_fn(ratio_short)
+    schedule at the step count after the update.  ``group``: data parallel
+    on this rank's rows; the gradients and the loss are the means over the
+    ranks (one all-reduce)."""
+    loss_fn = make_longclip_loss_fn(ratio_short, group)
 
     def step(state, image, text_long, text_short):
         model = state.model
@@ -161,10 +188,16 @@ def make_longclip_train_step(ratio_short: float = 0.1):
         with torch.enable_grad():
             loss = loss_fn(model, image, text_long, text_short)
             loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            params = [p for g in state.optimizer.param_groups for p in g["params"]]
+            loss = all_reduce_grads(params, group, loss)[0] / group.world
+            for p in params:
+                p.grad.div_(group.world)
         state.apply_gradients()
         with torch.no_grad():
             model.logit_scale.clamp_(max=MAX_LOGIT_SCALE)
-        return state, {"loss": loss.detach(), "lr": state.lr_fn(state.step)}
+        return state, {"loss": loss, "lr": state.lr_fn(state.step)}
 
     return step
 

@@ -1,6 +1,5 @@
-"""Train and eval steps on one device (port of ``egm_unet_tpu/engine/train.py``;
-the JAX package's data-parallel ``jit_sharded`` waits for the multi-GPU
-slice).
+"""Train and eval steps (port of ``egm_unet_tpu/engine/train.py``), on one
+device or data-parallel over a group of ranks.
 
 A step takes the ``TrainState`` of ``engine/state.py`` and a batch on the
 model's device: NHWC images (float, or raw uint8 with ``normalize``) and
@@ -15,14 +14,26 @@ hand-written kernel, as the JAX package's BatchNorm graph reaches no Pallas
 kernel; ``--amp`` is ``input_dtype=torch.bfloat16``: every conv then
 computes in bfloat16 on float32 parameters, BatchNorm and the losses in
 float32.
+
+Data parallel (``group``, a ``parallel.DataGroup``; the JAX package's
+``jit_sharded`` step over a mesh): each rank gets its rows of the global
+batch (``parallel.shard_batch``) and computes, under ``use_data_group``, the
+BatchNorms over the global batch (sync-BN) and its part of the global
+batch's loss (``losses.criterion``); one flat all-reduce after the backward
+pass sums the gradients and the parts of the loss, and every rank makes the
+same update.  The step then equals the one-device step on the global batch:
+``aux["loss"]`` is the global batch's loss on every rank.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from egm_unet_torch import losses as L
 from egm_unet_torch import metrics as M
+from egm_unet_torch.parallel.mesh import DataGroup, all_reduce_grads, use_data_group
 
 
 def _device_normalize(images: torch.Tensor, normalize, input_dtype):
@@ -48,37 +59,55 @@ def _loss(model, images, targets, num_classes, dice, ignore_index):
                        ignore_index=ignore_index)
 
 
+def _reduce(state, group: Optional[DataGroup], loss: torch.Tensor) -> torch.Tensor:
+    """Under a data group: the gradients of the optimiser's parameters and
+    this rank's part of the loss summed over the group (one all-reduce);
+    returns the global loss."""
+    if group is None:
+        return loss
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    return all_reduce_grads(params, group, loss)[0]
+
+
 def make_train_step(num_classes: int = 2, dice: bool = True,
-                    ignore_index: int = 255, normalize=None, input_dtype=None):
+                    ignore_index: int = 255, normalize=None, input_dtype=None,
+                    group: Optional[DataGroup] = None):
     """Returns ``step(state, images, targets) -> (state, aux)``.
     ``normalize=(mean, std)``: images arrive as raw uint8 and are normalised
     on the device; ``input_dtype``: the compute dtype the images are cast
-    to."""
+    to; ``group``: data parallel, the images and targets this rank's rows of
+    the global batch."""
 
     def train_step(state, images, targets):
         model = state.model
         model.train()
-        with torch.enable_grad():
+        # the group stays set through backward(): the recomputed forwards
+        # of checkpointed blocks all-reduce their BatchNorms' sums again
+        with torch.enable_grad(), use_data_group(group):
             x = _inputs(images, normalize, input_dtype)
             loss = _loss(model, x, targets.long(), num_classes, dice, ignore_index)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        loss = _reduce(state, group, loss.detach())
         state.apply_gradients()
-        return state, {"loss": loss.detach(), "lr": state.lr_fn(state.step)}
+        return state, {"loss": loss, "lr": state.lr_fn(state.step)}
 
     return train_step
 
 
 def make_train_step_accum(accum: int, num_classes: int = 2, dice: bool = True,
                           ignore_index: int = 255, normalize=None,
-                          input_dtype=None):
+                          input_dtype=None, group: Optional[DataGroup] = None):
     """Gradient accumulation: the batch of B splits into ``accum``
     microbatches of B / accum, run one after another.  Each forward
     normalises with its microbatch's BatchNorm statistics and updates the
     running ones in order; the gradients are summed, divided by ``accum``
     and applied in one update; ``aux["loss"]`` is the mean of the
     microbatches' losses (the first-sample quirk of ``lap_loss`` takes the
-    first sample of each microbatch).  B % accum != 0 raises ValueError."""
+    first sample of each microbatch).  B % accum != 0 raises ValueError.
+    With ``group``, this rank's rows are laid out by microbatch
+    (``parallel.shard_batch(..., accum=accum)``): its i-th slice of B /
+    accum rows is its share of the global microbatch i."""
 
     def train_step(state, images, targets):
         batch = images.shape[0]
@@ -89,7 +118,7 @@ def make_train_step_accum(accum: int, num_classes: int = 2, dice: bool = True,
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         lsum = torch.zeros((), dtype=torch.float32, device=images.device)
-        with torch.enable_grad():
+        with torch.enable_grad(), use_data_group(group):
             x = _inputs(images, normalize, input_dtype)
             t = targets.long()
             for i in range(accum):
@@ -97,6 +126,7 @@ def make_train_step_accum(accum: int, num_classes: int = 2, dice: bool = True,
                 loss = _loss(model, x[sl], t[sl], num_classes, dice, ignore_index)
                 loss.backward()
                 lsum = lsum + loss.detach()
+        lsum = _reduce(state, group, lsum)
         for p in model.parameters():
             if p.grad is not None:
                 p.grad.div_(accum)
@@ -108,17 +138,19 @@ def make_train_step_accum(accum: int, num_classes: int = 2, dice: bool = True,
 
 def make_train_multistep(num_classes: int = 2, dice: bool = True,
                          ignore_index: int = 255, normalize=None,
-                         input_dtype=None, accum: int = 1):
+                         input_dtype=None, accum: int = 1,
+                         group: Optional[DataGroup] = None):
     """K train steps per call: ``(state, images[K, B, ...], targets[K, B,
     ...]) -> (state, aux)`` with ``aux["loss"]`` a [K] tensor and
     ``aux["lr"]`` a list of K rates, equal to K calls of the single step
-    (``accum > 1``: of the accumulation step)."""
+    (``accum > 1``: of the accumulation step; ``group``: K data-parallel
+    steps on this rank's rows, ``parallel.shard_superbatch``)."""
     if accum > 1:
         step = make_train_step_accum(accum, num_classes, dice, ignore_index,
-                                     normalize, input_dtype)
+                                     normalize, input_dtype, group)
     else:
         step = make_train_step(num_classes, dice, ignore_index, normalize,
-                               input_dtype)
+                               input_dtype, group)
 
     def multi_step(state, images, targets):
         losses, lrs = [], []
@@ -148,3 +180,17 @@ def make_eval_step(num_classes: int = 2, ignore_index: int = 255,
         return confmat, dice_state
 
     return eval_step
+
+
+def reduce_eval(confmat: torch.Tensor, dice_state: M.DiceState,
+                group: Optional[DataGroup]):
+    """The confusion matrix and dice state of every rank's eval batches
+    summed over ``group``: the one-process matrix exactly, its dice to
+    float32 roundoff (a sum in another order).  As they are without a
+    group."""
+    if group is None:
+        return confmat, dice_state
+    confmat = group.all_reduce(confmat.clone())
+    total = group.all_reduce(torch.stack([dice_state.cumulative.double(),
+                                          dice_state.count.double()]))
+    return confmat, M.DiceState(total[0].float(), total[1].to(torch.int32))

@@ -16,6 +16,15 @@ with the reference's quirks kept on purpose:
 - class weights [1, 2] iff there are 2 classes;
 - the weighted cross-entropy mean divides by the sum of the pixel weights.
 
+Every mean is a sum over the batch divided by the batch's count.  Under a
+data group (``parallel.data_group()``, set by the train step) each rank holds
+its rows of the global batch and ``criterion`` gives this rank's part: its
+rows' sums over the global batch's counts (B, B·H·W, the sum of the pixel
+weights), against the global batch's first target, so that the parts sum
+over the ranks to the loss of the global batch.  One all-reduce per call
+brings the sum of the pixel weights and the first target (rank 0's) to every
+rank.
+
 Layout: logits NHWC ``[B, H, W, C]``, any float dtype (cast to float32);
 targets ``[B, H, W]`` integers.
 """
@@ -29,26 +38,37 @@ import torch
 import torch.nn.functional as F
 
 from egm_unet_torch.ops.stencil import LAPLACE4, LAPLACE8, SOBEL_X, SOBEL_Y, stencil2d
+from egm_unet_torch.parallel.mesh import data_group
 
 IGNORE_INDEX = 255
 
 
-def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+def pixel_weights(target: torch.Tensor, num_classes: int,
                   weight: Optional[torch.Tensor] = None,
-                  ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
-    """Weighted cross-entropy with ``ignore_index``, ``F.cross_entropy``'s
-    mean: the sum over valid pixels divided by the sum of their class
-    weights."""
-    num_classes = logits.shape[-1]
-    logp = F.log_softmax(logits.float(), dim=-1)
+                  ignore_index: int = IGNORE_INDEX):
+    """(one-hot targets, each pixel's class weight: 0 where ignored)."""
     valid = target != ignore_index
     t_safe = torch.where(valid, target, torch.zeros_like(target)).long()
     onehot = F.one_hot(t_safe, num_classes).float()
-    nll = -(logp * onehot).sum(dim=-1)
-    w = (torch.ones(num_classes, device=logits.device) if weight is None
-         else weight.float().to(logits.device))
-    pix_w = torch.where(valid, (w * onehot).sum(dim=-1), torch.zeros_like(nll))
-    return (nll * pix_w).sum() / pix_w.sum().clamp_min(1e-12)
+    w = (torch.ones(num_classes, device=target.device) if weight is None
+         else weight.float().to(target.device))
+    pix_w = (w * onehot).sum(dim=-1)
+    return onehot, torch.where(valid, pix_w, torch.zeros_like(pix_w))
+
+
+def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+                  weight: Optional[torch.Tensor] = None,
+                  ignore_index: int = IGNORE_INDEX,
+                  weight_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted cross-entropy with ``ignore_index``, ``F.cross_entropy``'s
+    mean: the sum over valid pixels divided by the sum of their class
+    weights (``weight_sum``: that of the global batch; default this
+    batch's)."""
+    onehot, pix_w = pixel_weights(target, logits.shape[-1], weight, ignore_index)
+    nll = -(F.log_softmax(logits.float(), dim=-1) * onehot).sum(dim=-1)
+    if weight_sum is None:
+        weight_sum = pix_w.sum()
+    return (nll * pix_w).sum() / weight_sum.clamp_min(1e-12)
 
 
 def build_target(target: torch.Tensor, num_classes: int = 2,
@@ -65,10 +85,11 @@ def build_target(target: torch.Tensor, num_classes: int = 2,
 
 
 def dice_coeff(x: torch.Tensor, target: torch.Tensor, ignore_index: int = -100,
-               epsilon: float = 1e-6) -> torch.Tensor:
+               epsilon: float = 1e-6, batch: Optional[int] = None) -> torch.Tensor:
     """Per-sample dice inside the region of interest, averaged over the
-    batch; ``x`` and ``target`` are ``[B, ...]`` (one channel's probabilities
-    and one-hot targets)."""
+    batch (summed over these rows, divided by ``batch``, the global batch's
+    size; default these rows' count); ``x`` and ``target`` are ``[B, ...]``
+    (one channel's probabilities and one-hot targets)."""
     b = x.shape[0]
     xf = x.float().reshape(b, -1)
     tf = target.float().reshape(b, -1)
@@ -77,66 +98,102 @@ def dice_coeff(x: torch.Tensor, target: torch.Tensor, ignore_index: int = -100,
     inter = (xf * tf * roi).sum(dim=1)
     sets_sum = (xf * roi).sum(dim=1) + (tf * roi).sum(dim=1)
     sets_sum = torch.where(sets_sum == 0.0, 2.0 * inter, sets_sum)
-    return ((2.0 * inter + epsilon) / (sets_sum + epsilon)).mean()
+    return ((2.0 * inter + epsilon) / (sets_sum + epsilon)).sum() / (batch or b)
 
 
 def multiclass_dice_coeff(x: torch.Tensor, target: torch.Tensor,
-                          ignore_index: int = -100,
-                          epsilon: float = 1e-6) -> torch.Tensor:
+                          ignore_index: int = -100, epsilon: float = 1e-6,
+                          batch: Optional[int] = None) -> torch.Tensor:
     """Channel mean of ``dice_coeff``, channels last."""
     num_ch = x.shape[-1]
     total = 0.0
     for c in range(num_ch):
-        total = total + dice_coeff(x[..., c], target[..., c], ignore_index, epsilon)
+        total = total + dice_coeff(x[..., c], target[..., c], ignore_index, epsilon,
+                                   batch)
     return total / num_ch
 
 
 def dice_loss(logits: torch.Tensor, target_onehot: torch.Tensor,
-              multiclass: bool = False, ignore_index: int = -100) -> torch.Tensor:
+              multiclass: bool = False, ignore_index: int = -100,
+              batch: Optional[int] = None) -> torch.Tensor:
+    """``1 - dice``; with ``batch`` (the global batch's size) these rows'
+    part of it, ``1 * rows / batch - dice``."""
     probs = F.softmax(logits.float(), dim=-1)
     fn = multiclass_dice_coeff if multiclass else dice_coeff
-    return 1.0 - fn(probs, target_onehot, ignore_index=ignore_index)
+    share = 1.0 if batch is None else logits.shape[0] / batch
+    return share - fn(probs, target_onehot, ignore_index=ignore_index, batch=batch)
 
 
-def laplace_loss(logits: torch.Tensor) -> torch.Tensor:
+def _mean(t: torch.Tensor, batch: Optional[int]) -> torch.Tensor:
+    """The sum of ``t`` ``[B, ...]`` over the element count of a batch of
+    ``batch`` (default B) rows."""
+    return t.sum() / (t.numel() // t.shape[0] * (batch or t.shape[0]))
+
+
+def laplace_loss(logits: torch.Tensor, batch: Optional[int] = None) -> torch.Tensor:
     """mean |Laplacian4(channel-0 logits)|, a smoothness prior."""
-    return stencil2d(logits[..., 0].float(), LAPLACE4).abs().mean()
+    return _mean(stencil2d(logits[..., 0].float(), LAPLACE4).abs(), batch)
 
 
-def lap_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def lap_loss(logits: torch.Tensor, target: torch.Tensor,
+             batch: Optional[int] = None, first: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
     """mean |Lap8(pred ch0) - Lap8(target[0])|: the first target of the
-    batch, broadcast against every prediction."""
+    batch (``first``, float ``[1, H, W]``: the global batch's), broadcast
+    against every prediction."""
     pred_d2 = stencil2d(logits[..., 0].float(), LAPLACE8)
-    truth_d2 = stencil2d(target[:1].float(), LAPLACE8)
-    return (pred_d2 - truth_d2).abs().mean()
+    truth_d2 = stencil2d(target[:1].float() if first is None else first, LAPLACE8)
+    return _mean((pred_d2 - truth_d2).abs(), batch)
 
 
-def sobel_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def sobel_loss(logits: torch.Tensor, target: torch.Tensor,
+               batch: Optional[int] = None, first: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """Sobel-response L1 between logits ch0 and the first target, taking
     (logits, target) in the order of the reference's call site."""
     pred = logits[..., 0].float()
-    truth = target[:1].float()
+    truth = target[:1].float() if first is None else first
     dxp, dyp = stencil2d(pred, SOBEL_X), stencil2d(pred, SOBEL_Y)
     dxt, dyt = stencil2d(truth, SOBEL_X), stencil2d(truth, SOBEL_Y)
-    return ((dxt - dxp).abs() + (dyt - dyp).abs()).mean()
+    return _mean((dxt - dxp).abs() + (dyt - dyp).abs(), batch)
+
+
+def _global_batch(target: torch.Tensor, loss_weight, num_classes: int,
+                  ignore_index: int):
+    """(global batch size, sum of its pixel weights, its first target as
+    float ``[1, H, W]``): this batch's own without a data group, else one
+    all-reduce of ``[first target (rank 0's; zeros elsewhere), weight
+    sum]``."""
+    _, pix_w = pixel_weights(target, num_classes, loss_weight, ignore_index)
+    first = target[:1].float()
+    group = data_group()
+    if group is None:
+        return target.shape[0], pix_w.sum(), first
+    if group.rank != 0:
+        first = torch.zeros_like(first)
+    buf = group.all_reduce(torch.cat([first.reshape(-1), pix_w.sum().reshape(1)]))
+    return target.shape[0] * group.world, buf[-1], buf[:-1].view_as(first)
 
 
 def criterion(outputs: dict, target: torch.Tensor,
               loss_weight: Optional[torch.Tensor] = None, num_classes: int = 2,
               dice: bool = True, ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
     """Total training loss over the model's output heads (``out`` and, where
-    there is one, ``aux`` at weight 0.5)."""
+    there is one, ``aux`` at weight 0.5).  Under a data group: this rank's
+    part of the global batch's loss (the module docstring)."""
+    batch, weight_sum, first = _global_batch(target, loss_weight, num_classes,
+                                             ignore_index)
     losses = {}
     for name, x in outputs.items():
-        loss = cross_entropy(x, target, loss_weight, ignore_index)
+        loss = cross_entropy(x, target, loss_weight, ignore_index, weight_sum)
         if dice:
             dice_target = build_target(target, num_classes, ignore_index)
             loss = (loss
                     + dice_loss(x, dice_target, multiclass=True,
-                                ignore_index=ignore_index)
-                    + 1.0 * laplace_loss(x)
-                    + lap_loss(x, target)
-                    + sobel_loss(x, target))
+                                ignore_index=ignore_index, batch=batch)
+                    + 1.0 * laplace_loss(x, batch)
+                    + lap_loss(x, target, batch, first)
+                    + sobel_loss(x, target, batch, first))
         losses[name] = loss
     if len(losses) == 1:
         return losses["out"]

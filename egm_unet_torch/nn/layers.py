@@ -13,8 +13,9 @@ chosen by ``fold_bn`` when a block is built, as in the JAX package:
   with ``upsample2x_fused`` before the concat.
 - ``fold_bn=False``, the training graph: conv -> ``BatchNorm`` -> ReLU in
   plain, differentiable PyTorch, no kernel.  ``module.train()`` normalises
-  with the batch's statistics and updates the running ones;
-  ``module.eval()`` normalises with the running ones.
+  with the batch's statistics (the global batch's under a data group:
+  sync-BN, ``parallel/``) and updates the running ones; ``module.eval()``
+  normalises with the running ones.
 
 Under int8 serving (``ops/quant.py``) every ``Conv`` records its input
 while calibrating and runs ``int8_conv`` in the int8 and int8full modes,
@@ -49,6 +50,7 @@ from egm_unet_torch.ops.quant import (INT8_CONV_MODES, convs_on_kernels,
                                       current_quantizer, qstore, site_active)
 from egm_unet_torch.ops.resize import (UPSAMPLE_IMPLS,
                                        upsample2x_bilinear_align_corners)
+from egm_unet_torch.parallel.mesh import data_group, use_data_group
 
 CONV_IMPLS = ("gemm", "pair")
 
@@ -178,18 +180,31 @@ class _BatchNormTrain(torch.autograd.Function):
     variance was not clipped), rather than autograd's path through ``E[x^2]
     - E[x]^2``, whose terms cancel at the size of ``mean^2``: the gradient
     of a conv bias in front of a BatchNorm, zero in exact arithmetic, stays
-    at float32 rounding of the gradient itself."""
+    at float32 rounding of the gradient itself.
+
+    Under a data group (sync-BN) the batch is the global one: the forward
+    sums the per-channel sums and sums of squares over the ranks in one
+    ``[2C]`` all-reduce, the backward ``sum(g)`` and ``sum(g * xhat)`` in
+    another.  The gradients of ``scale`` and ``bias`` stay this rank's own
+    sums: the gradient all-reduce adds them once."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, group):
         xf = x.to(_stat_dtype(x))
         dims = tuple(range(xf.ndim - 1))
-        mean = xf.mean(dim=dims)
-        raw = (xf * xf).mean(dim=dims) - mean * mean
+        c = xf.shape[-1]
+        n = xf.numel() // c
+        sums = torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims)])
+        if group is not None:
+            group.all_reduce(sums)
+            n *= group.world
+        mean, sq = (sums / n).split(c)
+        raw = sq - mean * mean
         var = torch.clamp(raw, min=0.0)
         rstd = torch.rsqrt(var + eps)
         y = (xf - mean) * (rstd * scale) + bias
         ctx.save_for_backward(x, mean, rstd, scale, raw > 0)
+        ctx.group, ctx.n = group, n
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
 
@@ -198,12 +213,16 @@ class _BatchNormTrain(torch.autograd.Function):
         x, mean, rstd, scale, live = ctx.saved_tensors
         g = gy.to(mean.dtype)
         dims = tuple(range(g.ndim - 1))
-        n = g.numel() // g.shape[-1]
+        c, n = g.shape[-1], ctx.n
         xhat = (x.to(mean.dtype) - mean) * rstd
         gsum = g.sum(dim=dims)
         gxhat = (g * xhat).sum(dim=dims)
-        gx = (scale * rstd) * (g - gsum / n - xhat * (gxhat / n * live))
-        return gx.to(x.dtype), gxhat, gsum, None
+        if ctx.group is None:
+            tsum, txhat = gsum, gxhat
+        else:
+            tsum, txhat = ctx.group.all_reduce(torch.cat([gsum, gxhat])).split(c)
+        gx = (scale * rstd) * (g - tsum / n - xhat * (txhat / n * live))
+        return gx.to(x.dtype), gxhat, gsum, None, None
 
 
 class BatchNorm(nn.Module):
@@ -249,7 +268,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             mul = torch.rsqrt(self.var + self.eps) * self.scale
             return ((x.to(_stat_dtype(x)) - self.mean) * mul + self.bias).to(x.dtype)
-        y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias, self.eps)
+        y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias, self.eps,
+                                             data_group())
         if not self.frozen:
             m = self.momentum
             with torch.no_grad():
@@ -259,12 +279,16 @@ class BatchNorm(nn.Module):
 
 
 @contextlib.contextmanager
-def _stats_frozen(owner: nn.Module):
+def _recompute(owner: nn.Module, group):
+    """The context of a checkpointed forward's second run: the running
+    statistics of the BatchNorms in ``owner`` frozen, and the data group of
+    the first run, which the autograd thread running it does not inherit."""
     bns = [m for m in owner.modules() if isinstance(m, BatchNorm)]
     for m in bns:
         m.frozen += 1
     try:
-        yield
+        with use_data_group(group):
+            yield
     finally:
         for m in bns:
             m.frozen -= 1
@@ -274,13 +298,16 @@ def remat(owner: nn.Module, fn, *args, **kwargs):
     """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint`` (the JAX
     package's ``nn.remat``): only the inputs are saved, and the backward pass
     runs ``fn`` again.  That second run leaves the running statistics of the
-    BatchNorms in ``owner`` alone.  A plain call when autograd is off."""
+    BatchNorms in ``owner`` alone, and under a data group all-reduces the
+    BatchNorms' sums again, in the same order on every rank.  A plain call
+    when autograd is off."""
     if not torch.is_grad_enabled():
         return fn(*args, **kwargs)
+    group = data_group()
     # no random op in any block, so there is no RNG state to replay
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
                       context_fn=lambda: (contextlib.nullcontext(),
-                                          _stats_frozen(owner)), **kwargs)
+                                          _recompute(owner, group)), **kwargs)
 
 
 def call_maybe_remat(on: bool, module: nn.Module, *args, **kwargs):

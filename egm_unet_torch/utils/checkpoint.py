@@ -11,6 +11,10 @@ The JAX package's orbax directories are not read: orbax needs JAX, which
 this package does not import.  A JAX state crosses over as a flax tree of
 numpy arrays (``utils/from_flax.py``).
 
+Data parallel, only rank 0 writes (``writer=False`` on the others: the
+cadence and the best dice are tracked, nothing is written) and every rank
+restores.
+
 ``folded_state_dict`` turns a directory's best (else latest) epoch into the
 ``state_dict`` of the BN-folded inference graph, which ``serving.Predictor``
 and ``cli/predict.py --weights`` load.
@@ -62,9 +66,11 @@ def load_payload(directory: str, epoch: Optional[int] = None) -> dict:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, period: int = 100):
+    def __init__(self, directory: str, period: int = 100, writer: bool = True):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.writer = writer
+        if writer:
+            os.makedirs(self.directory, exist_ok=True)
         self.period = period
         self.best_dice = -1.0
 
@@ -76,21 +82,25 @@ class CheckpointManager:
         is_best = dice is not None and dice > self.best_dice
         if is_best:
             self.best_dice = float(dice)
-        if (epoch + 1) % self.period == 0 or epoch == total_epochs - 1 or is_best:
-            payload = {"state": state.state_dict(), "epoch": epoch,
-                       "best_dice": self.best_dice}
-            out = os.path.join(self.directory, str(epoch))
-            os.makedirs(out, exist_ok=True)
-            tmp = os.path.join(out, CHECKPOINT_FILE + ".tmp")
-            torch.save(payload, tmp)
-            os.replace(tmp, os.path.join(out, CHECKPOINT_FILE))
-            if extra:  # non-tensor metadata (the arguments) as a JSON sidecar
-                with open(os.path.join(self.directory, "meta.json"), "w") as f:
-                    json.dump(extra, f, indent=2, default=str)
-            tags.append("best" if is_best else "periodic")
-            if is_best:
-                with open(os.path.join(self.directory, "best_epoch.txt"), "w") as f:
-                    f.write(f"{epoch} {self.best_dice}\n")
+        if not ((epoch + 1) % self.period == 0 or epoch == total_epochs - 1
+                or is_best):
+            return tags
+        tags.append("best" if is_best else "periodic")
+        if not self.writer:
+            return tags
+        payload = {"state": state.state_dict(), "epoch": epoch,
+                   "best_dice": self.best_dice}
+        out = os.path.join(self.directory, str(epoch))
+        os.makedirs(out, exist_ok=True)
+        tmp = os.path.join(out, CHECKPOINT_FILE + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, os.path.join(out, CHECKPOINT_FILE))
+        if extra:  # non-tensor metadata (the arguments) as a JSON sidecar
+            with open(os.path.join(self.directory, "meta.json"), "w") as f:
+                json.dump(extra, f, indent=2, default=str)
+        if is_best:
+            with open(os.path.join(self.directory, "best_epoch.txt"), "w") as f:
+                f.write(f"{epoch} {self.best_dice}\n")
         return tags
 
     def latest_epoch(self) -> Optional[int]:

@@ -5,7 +5,8 @@
 the reference's format, byte for byte the JAX package's for the same
 numbers: the epoch, train loss and lr lines, the dice line, the
 confusion-matrix block.  ``MetricLogger`` is a windowed meter with an ETA
-that prints every ``print_freq`` iterations.
+that prints every ``print_freq`` iterations.  Data parallel, both write on
+rank 0 only (``writer=False`` elsewhere).
 """
 
 from __future__ import annotations
@@ -41,9 +42,10 @@ class SmoothedValue:
 
 
 class MetricLogger:
-    def __init__(self, delimiter: str = "  "):
+    def __init__(self, delimiter: str = "  ", writer: bool = True):
         self.meters = collections.defaultdict(SmoothedValue)
         self.delimiter = delimiter
+        self.print = print if writer else (lambda *a, **k: None)
 
     def update(self, **kwargs):
         for k, v in kwargs.items():
@@ -68,21 +70,24 @@ class MetricLogger:
                     eta = f"eta: {datetime.timedelta(seconds=int(eta_s))}  "
                 meters = self.delimiter.join(
                     f"{k}: {m.value:.4f} ({m.global_avg:.4f})" for k, m in self.meters.items())
-                print(f"{header} [{i}{'/' + str(total) if total else ''}]  {eta}{meters}  "
+                self.print(f"{header} [{i}{'/' + str(total) if total else ''}]  {eta}{meters}  "
                       f"time: {iter_time.avg:.4f}s")
             i += 1
             end = time.time()
-        print(f"{header} Total time: "
+        self.print(f"{header} Total time: "
               f"{datetime.timedelta(seconds=int(time.time() - start))}")
 
 
 class ResultsWriter:
-    def __init__(self, path: str | None = None):
+    def __init__(self, path: str | None = None, writer: bool = True):
         ts = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
         self.path = path or f"results{ts}.txt"
+        self.writer = writer
 
     def write_epoch(self, epoch: int, mean_loss: float, lr: float,
                     confmat_block: str, dice: float):
+        if not self.writer:
+            return
         info = (f"[epoch: {epoch}]\n"
                 f"train_loss: {mean_loss:.4f}\n"
                 f"lr: {lr:.6f}\n"

@@ -68,3 +68,10 @@ def test_text_branch_modules_are_scanned():
                 "data/fewshot.py", "data/fewshot_splits.py", "config.py",
                 "cli/train_clipseg.py", "cli/train_longclip.py", "models/clip/resnet.py"):
         assert f"egm_unet_torch/{mod}" in names, mod
+
+
+def test_parallel_modules_are_scanned():
+    """The data-parallel package is among the scanned sources."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("parallel/__init__.py", "parallel/mesh.py"):
+        assert f"egm_unet_torch/{mod}" in names, mod

@@ -131,12 +131,15 @@ def test_predict_cli_serves_the_folded_checkpoint(trained, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [(["--device-aug"], "item 6"),
                                        (["--device-cache"], "item 6"),
-                                       (["--mesh-data", "2"], "item 9"),
-                                       (["--mesh-spatial", "2"], "item 9")])
+                                       (["--mesh-data", "2", "--device-cache"],
+                                        "single-device"),
+                                       (["--mesh-spatial", "2"], "item 11")])
 def test_unported_flags_exit_non_zero(flag, item):
-    """--mesh-* (multi-GPU, ROADMAP item 9) exit non-zero naming their item.
-    The GPU-resident dataset's flags (item 6) are ported: accepted, and
-    refused only beside --steps-per-dispatch > 1."""
+    """--mesh-spatial (spatial parallelism, ROADMAP item 11) exits non-zero
+    naming its item; --mesh-data (item 9, ported: tests/test_torch_dp_cli.py)
+    exits beside --device-cache, which is single-device.  The GPU-resident
+    dataset's flags (item 6) are ported: accepted, and refused only beside
+    --steps-per-dispatch > 1."""
     if item == "item 6":
         train_cli.refuse_unported(train_cli.parse_args(ARGS + flag))
         with pytest.raises(SystemExit) as exc:

@@ -46,6 +46,22 @@ shapes the main paths give it, and drives the main paths at full width:
   (``text_kernel_records``); and an RN50-width CLIP's ``encode_image`` at
   batch 32 (``clip_resnet``, no hand-written kernel).
 
+- convert_tail, after the serving phases: seeded reference checkpoints in
+  the reference's key layout (``egm_unet`` and the yuan ``egm_unet_ab``,
+  base_c 32; a ViT-B/16 CLIP with 77 text positions) converted by three
+  ``cli/convert.py`` processes started together (``--kind egm``, ``--kind
+  clip --stretch-long``); each UNet directory served by
+  ``Predictor.from_checkpoint`` at the bucket, batch 8, bf16, on both kernel
+  routes with each route's launch counts, the egm_unet one in float32 on the
+  card against the CPU, ``cli/predict.py`` on it scored by
+  ``cli/evaluating_indicator.py`` on the card (confusion matrix equal to one
+  counted here), one forward under ``utils/profiling.py``'s ``StepTimer`` and
+  ``trace`` (``convert_serve``); the CLIP file read back into the fusion
+  phase's CLIPSeg, its logits bit-equal to the direct load (``convert_clip``);
+  ``VITDensePredT`` at ViT-B/16 384 (``vitseg``), the ``nn/extra.py``
+  modules (``extra_modules``) card against CPU; the native BPE loop against
+  the Python one (``native_bpe``).
+
 - data parallel (``egm_unet_torch/parallel``), last: the train step and
   ``cli/train_longclip.py``'s step under an NCCL group of one (the card's
   one GPU) at the ``train`` and ``train_longclip`` configurations, bit for
@@ -96,6 +112,7 @@ the card compute in full float32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import http.client
 import io
 import json
@@ -116,6 +133,8 @@ import torch.nn.functional as F
 
 from PIL import Image
 
+from egm_unet_torch import native
+from egm_unet_torch.cli import evaluating_indicator
 from egm_unet_torch.cli import predict as predict_cli
 from egm_unet_torch.cli import serve as serve_cli
 from egm_unet_torch.cli import train as train_cli
@@ -141,8 +160,11 @@ from egm_unet_torch.engine.longclip_train import (MAX_LOGIT_SCALE, create_longcl
                                                   make_longclip_train_step, pca_reconstruct)
 from egm_unet_torch.models import create_model
 from egm_unet_torch.models.clip.model import CLIP, VIT_B16, CLIPConfig
+from egm_unet_torch.models.clip.tokenizer import SimpleTokenizer, tokenize
 from egm_unet_torch.models.clipseg import CLIPDensePredT
 from egm_unet_torch.models.registry import init_weights
+from egm_unet_torch.models.vitseg import VITDensePredT
+from egm_unet_torch.nn import extra
 from egm_unet_torch.nn.attention import MCALayer
 from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU, DoubleConv, cast_weights
 from egm_unet_torch.ops.cuda import (build, conv3x3, csa, launch_counts, mca,
@@ -150,7 +172,10 @@ from egm_unet_torch.ops.cuda import (build, conv3x3, csa, launch_counts, mca,
 from egm_unet_torch.ops.quant import QUANT_MODES, SHIP_QSTORE_SITES
 from egm_unet_torch.parallel import all_reduce_grads, launch, shard_batch
 from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_of
-from egm_unet_torch.utils.checkpoint import best_epoch, folded_state_dict, load_payload
+from egm_unet_torch.utils.checkpoint import (best_epoch, folded_state_dict, load_payload,
+                                             saved_epochs)
+from egm_unet_torch.utils.convert import load_clip_checkpoint, load_converted_clip
+from egm_unet_torch.utils.profiling import StepTimer, device_synchronized, trace
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -2505,6 +2530,499 @@ def dp_longclip_world1(group, dev, two_ranks: list) -> dict:
     return dp["launches"]
 
 
+# ------------------------------------------- reference checkpoints, the tail
+
+CONVERT_MODELS = ("egm_unet", "egm_unet_ab")  # with MCA, and the yuan layout
+CONVERT_ROUTES = (("gemm", "matmul"), ("pair", "fused"))
+N_EVAL_IMAGES = 4  # cli/predict.py --synthetic writes four
+
+
+def reference_egm_state_dict(use_mca: bool, base_c: int = BASE_C, num_classes: int = 2,
+                             seed: int = SEED) -> dict:
+    """A seeded state dict in the reference GRFBUNet's key layout
+    (src/EGM-UNet.py's module tree; ``use_mca=False`` is the yuan layout,
+    whose encoder Sequential has no MCALayer at index 3), enumerated here
+    from the reference's shapes, independent of the port's converter:
+    conv kernels at He scale, BatchNorms with non-trivial affine parameters
+    and running statistics."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen) * std
+
+    def conv(key, cin, cout, k=3, bias=False, groups=1):
+        fan = cin // groups * k * k
+        sd[f"{key}.weight"] = randn(cout, cin // groups, k, k, std=math.sqrt(2.0 / fan))
+        if bias:
+            sd[f"{key}.bias"] = randn(cout, std=0.05)
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = 0.7 + 0.6 * torch.rand(c, generator=gen)
+        sd[f"{key}.bias"] = randn(c, std=0.05)
+        sd[f"{key}.running_mean"] = randn(c, std=0.1)
+        sd[f"{key}.running_var"] = 0.5 + 1.5 * torch.rand(c, generator=gen)
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(1000)
+
+    def basic(key, cin, cout, k=3, groups=1):
+        conv(f"{key}.conv", cin, cout, k, groups=groups)
+        bn(f"{key}.bn", cout)
+
+    def double_conv(prefix, cin, cout, mid=None):
+        mid = mid or cout
+        conv(f"{prefix}.0", cin, mid)
+        bn(f"{prefix}.1", mid)
+        conv(f"{prefix}.3", mid, cout)
+        bn(f"{prefix}.4", cout)
+
+    def edge_aware(prefix, c):
+        conv(f"{prefix}.weight_generator.0", c, c, 1, bias=True)
+        bn(f"{prefix}.weight_generator.1", c)
+
+    def mca(prefix, c):
+        temp = round(abs((math.log2(c) - 1) / 1.5))
+        for gate, k in (("h_cw", 3), ("w_hc", 3), ("c_hw", max(temp if temp % 2 else temp - 1, 1))):
+            sd[f"{prefix}.{gate}.conv.weight"] = randn(1, 1, 1, k, std=0.5)
+            sd[f"{prefix}.{gate}.weight"] = torch.rand(2, generator=gen)
+
+    def egrfb(prefix, cin, cout):
+        i = max(cin // 8, 4)
+        edge_aware(f"{prefix}.edge_enhancer", cin)
+        basic(f"{prefix}.branch_dir.0", cin, 2 * i, 1)
+        basic(f"{prefix}.branch_dir.1", 2 * i, 2 * i, 3)
+        basic(f"{prefix}.branch_dir.2", 2 * i, 2 * i, 1)
+        basic(f"{prefix}.branch_edge.0", cin, i, 1)
+        edge_aware(f"{prefix}.branch_edge.1", i)
+        basic(f"{prefix}.branch_edge.2", i, 2 * i, 3, groups=i)
+        basic(f"{prefix}.branch_edge.3", 2 * i, 2 * i, 3)
+        basic(f"{prefix}.branch_edge.4", 2 * i, 2 * i, 1)
+        basic(f"{prefix}.branch_ctx.0", cin, i, 3)
+        basic(f"{prefix}.branch_ctx.1", i, 2 * i, 3, groups=2)
+        basic(f"{prefix}.branch_ctx.2", 2 * i, 2 * i, 3)
+        basic(f"{prefix}.branch_ctx.3", 2 * i, 2 * i, 1)
+        f, dim = f"{prefix}.fusion_conv", cout // 4
+        conv(f"{f}.down", 2 * (cin + 6 * i), dim, 1, bias=True)
+        for name, k in (("conv_3x3", 3), ("conv_5x5", 5), ("conv_7x7", 7)):
+            conv(f"{f}.{name}", dim, dim, k, bias=True)
+        conv(f"{f}.spatial_attention.conv1", 2, 1, 7)
+        conv(f"{f}.channel_attention.fc.0", dim, dim // 4, 1)
+        conv(f"{f}.channel_attention.fc.2", dim // 4, dim, 1)
+        conv(f"{f}.up", dim, cout, 1, bias=True)
+        basic(f"{prefix}.shortcut", cin, cout, 1)
+        conv(f"{prefix}.target_enhancer.0", cout, 3, 3, bias=True)
+
+    c = base_c
+    double_conv("in_conv", 3, c)
+    for k, (ci, co) in enumerate([(c, 2 * c), (2 * c, 4 * c), (4 * c, 8 * c),
+                                  (8 * c, 8 * c)], start=1):
+        p = f"down{k}.1"
+        conv(f"{p}.0", ci, co)
+        bn(f"{p}.1", co)
+        if use_mca:
+            mca(f"{p}.3", co)
+        i2 = 4 if use_mca else 3
+        conv(f"{p}.{i2}", co, co)
+        bn(f"{p}.{i2 + 1}", co)
+        egrfb(f"{p}.{i2 + 3}", co, co)
+    dim, half = 8 * c, 4 * c
+    conv("attn1.proj_in", dim, 3 * half, 1, bias=True)
+    conv("attn1.dwconv", 2 * half, 2 * half, 3, bias=True, groups=2 * half)
+    sd["attn1.scale"] = torch.tensor(1.0)
+    for g in range(2):
+        hid = max(half // 8, 8)
+        conv(f"attn1.gate_convs.{g}.0", half, hid, 1, bias=True)
+        conv(f"attn1.gate_convs.{g}.2", hid, 1, 1, bias=True)
+    conv("attn1.transform_convs.0", half, half, 1, bias=True)
+    conv("attn1.proj_out", half, dim, 1, bias=True)
+    for k, (ci, co) in enumerate([(16 * c, 4 * c), (8 * c, 2 * c), (4 * c, c), (2 * c, c)],
+                                 start=1):
+        double_conv(f"up{k}.conv", ci, co, mid=ci // 2)
+    conv("out_conv.0", c, num_classes, 1, bias=True)
+    return sd
+
+
+def reference_clip_state_dict(seed: int = SEED) -> dict:
+    """A seeded OpenAI ViT-B/16 CLIP state dict in the reference's key
+    layout (77 text positions, no ``positional_embedding_res``): the
+    widths of ``VIT_B16``, which ``--stretch-long`` turns into Long-CLIP."""
+    gen = torch.Generator().manual_seed(seed)
+    cfg = VIT_B16
+
+    def randn(*shape, std):
+        return torch.randn(shape, generator=gen) * std
+
+    w, tw, p = cfg.vision_width, cfg.transformer_width, cfg.vision_patch_size
+    sd = {"visual.conv1.weight": randn(w, 3, p, p, std=(3 * p * p) ** -0.5),
+          "visual.class_embedding": randn(w, std=w ** -0.5),
+          "visual.positional_embedding": randn((cfg.image_resolution // p) ** 2 + 1, w,
+                                               std=w ** -0.5),
+          "visual.proj": randn(w, cfg.embed_dim, std=w ** -0.5),
+          "token_embedding.weight": randn(cfg.vocab_size, tw, std=0.02),
+          "positional_embedding": randn(77, tw, std=0.01),
+          "text_projection": randn(tw, cfg.embed_dim, std=tw ** -0.5),
+          "logit_scale": torch.tensor(math.log(1 / 0.07))}
+    for ln, width in (("visual.ln_pre", w), ("visual.ln_post", w), ("ln_final", tw)):
+        sd[f"{ln}.weight"] = 1 + randn(width, std=0.1)
+        sd[f"{ln}.bias"] = randn(width, std=0.05)
+    for prefix, width, depth in (("visual.transformer.resblocks", w, cfg.vision_layers),
+                                 ("transformer.resblocks", tw, cfg.transformer_layers)):
+        for i in range(depth):
+            b = f"{prefix}.{i}"
+            for ln in ("ln_1", "ln_2"):
+                sd[f"{b}.{ln}.weight"] = 1 + randn(width, std=0.1)
+                sd[f"{b}.{ln}.bias"] = randn(width, std=0.05)
+            for name, (o, i_) in (("attn.in_proj", (3 * width, width)),
+                                  ("attn.out_proj", (width, width)),
+                                  ("mlp.c_fc", (4 * width, width)),
+                                  ("mlp.c_proj", (width, 4 * width))):
+                key = f"{b}.{name}_weight" if name == "attn.in_proj" else f"{b}.{name}.weight"
+                sd[key] = randn(o, i_, std=i_ ** -0.5)
+                bkey = f"{b}.{name}_bias" if name == "attn.in_proj" else f"{b}.{name}.bias"
+                sd[bkey] = randn(o, std=0.02)
+    return sd
+
+
+def convert_cli_run(args: list) -> subprocess.Popen:
+    """``python -m egm_unet_torch.cli.convert ARGS`` as a user runs it, from
+    the checkout's root; not waited for."""
+    return subprocess.Popen([sys.executable, "-m", "egm_unet_torch.cli.convert", *args],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def convert_all(work: Path) -> dict:
+    """The reference checkpoints written as train.py saves them, converted by
+    three ``cli/convert.py`` processes started together: the two EGM layouts
+    (``--kind egm``) and the CLIP one (``--kind clip --stretch-long``)."""
+    t0 = time.perf_counter()
+    procs, out = {}, {"dirs": {}}
+    for name in CONVERT_MODELS:
+        pth = work / f"{name}_model_best.pth"
+        sd = reference_egm_state_dict(use_mca=name == "egm_unet", base_c=BASE_C)
+        torch.save({"model": sd, "optimizer": {}, "epoch": 1}, pth)
+        out["dirs"][name] = work / f"{name}_converted"
+        procs[name] = convert_cli_run(["--kind", "egm", "--torch", str(pth), "--out",
+                                       str(out["dirs"][name]), "--model", name,
+                                       "--base-c", str(BASE_C), "--num-classes", "2"])
+    out["clip_pt"] = work / "clip_vit_b16.pt"
+    out["clip_out"] = work / "clip_converted.pt"
+    torch.save(reference_clip_state_dict(), out["clip_pt"])
+    procs["clip"] = convert_cli_run(["--kind", "clip", "--torch", str(out["clip_pt"]),
+                                     "--out", str(out["clip_out"]), "--stretch-long"])
+    logs = {}
+    for name, proc in procs.items():
+        logs[name], _ = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"cli/convert.py for {name} exited "
+                                    f"{proc.returncode}:\n{logs[name]}")
+    out["seconds"] = time.perf_counter() - t0
+    out["logs"] = {k: v.strip().splitlines()[-1][:200] for k, v in logs.items()}
+    return out
+
+
+def converted_predictor(directory, name, conv_impl, upsample_impl, dtype, device,
+                        batch=BATCH):
+    cfg = PredictorConfig(model_name=name, base_c=BASE_C, num_classes=2, batch_size=batch,
+                          dtype=dtype, conv_impl=conv_impl, upsample_impl=upsample_impl)
+    return Predictor.from_checkpoint(str(directory), cfg, device=device)
+
+
+def eval_confmat(gt_dir: Path, pred_dir: Path, names) -> np.ndarray:
+    """The evaluator's confusion matrix accumulated here in numpy from the
+    same PNGs: /255 rounded labels, ground truth by rows."""
+    hist = np.zeros((2, 2), np.int64)
+    for name in names:
+        gt = np.asarray(Image.open(gt_dir / f"{name}.png").convert("L"))
+        pr = np.asarray(Image.open(pred_dir / f"{name}.png").convert("L"))
+        g = np.rint(gt / 255.0).astype(np.int64).ravel()
+        p = np.rint(pr / 255.0).astype(np.int64).ravel()
+        hist += np.bincount(2 * g + p, minlength=4).reshape(2, 2)
+    return hist
+
+
+def phase_convert_serve(dev, conv: dict) -> dict:
+    """Reference checkpoints of ``egm_unet`` and ``egm_unet_ab`` (base_c 32)
+    converted by ``cli/convert.py`` and served: ``Predictor.from_checkpoint``
+    at the serving bucket, batch 8, bf16, on both kernel routes, each
+    forward's launches held to the route's counts; the egm_unet directory in
+    float32 on the card against the CPU's plain versions (2 images,
+    ``card_vs_cpu``'s bounds); ``cli/predict.py`` on it writing PNGs, which
+    ``cli/evaluating_indicator.py`` scores on the card against synthetic
+    ground truth, its confusion matrix equal to one counted here; one forward
+    timed under ``utils.profiling``'s ``StepTimer`` and ``trace``."""
+    raws = [synthetic_tp_sample(300 + i)[0] for i in range(BATCH)]
+    launches, per_model = per_forward(), {}
+    for name in CONVERT_MODELS:
+        directory = conv["dirs"][name]
+        check(saved_epochs(str(directory)) == [0], f"{directory}: epochs "
+                                                   f"{saved_epochs(str(directory))}")
+        for conv_impl, up_impl in CONVERT_ROUTES:
+            pred = converted_predictor(directory, name, conv_impl, up_impl, "bfloat16", "cuda")
+            want = dict(PER_FORWARD if conv_impl == "gemm" else PER_FORWARD_PAIR)
+            if name != "egm_unet":  # the yuan layout has no MCALayer
+                want["mca_fused"] = 0
+            pred.predict(raws[:1])  # first call: the bucket's cuDNN plans
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            masks = pred.predict(raws)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            check(got == want, f"{name} {conv_impl}/{up_impl}: launches {got} != {want}")
+            for k in launches:
+                launches[k] += got[k]
+            for raw, mask in zip(raws, masks):
+                check(mask.shape == raw.shape[:2] and int(mask.max()) <= 1,
+                      f"{name}: mask {mask.shape} for image {raw.shape}")
+            x = bucket_batch(pred, raws)
+            per_model[f"{name}/{conv_impl}/{up_impl}"] = {
+                "launches_per_forward": got,
+                "ms_per_batch": time_ms(lambda: pred.forward(x), reps=5, warm=1),
+                "foreground_share": float(np.mean([m.mean() for m in masks]))}
+            del pred
+    for rec in per_model.values():
+        rec["img_per_s"] = BATCH / rec["ms_per_batch"] * 1e3
+
+    # float32: card (kernels) against the CPU (plain versions), 2 images
+    directory = conv["dirs"]["egm_unet"]
+    gpu_pred = converted_predictor(directory, "egm_unet", "gemm", "matmul", "float32", "cuda",
+                                   batch=2)
+    cpu_pred = converted_predictor(directory, "egm_unet", "gemm", "matmul", "float32", "cpu",
+                                   batch=2)
+    x = bucket_batch(gpu_pred, raws[:2])[:2].cpu()
+    t0 = time.perf_counter()
+    cpu = cpu_pred.model(x)["out"]
+    cpu_s = time.perf_counter() - t0
+    reset_launch_counts()
+    gpu = gpu_pred.model(x.cuda())["out"].cpu()
+    f32_launches = launch_counts()
+    check(f32_launches == PER_FORWARD, f"float32 converted forward launches {f32_launches}")
+    card_vs_cpu_record("egm_unet_converted", list(x.shape), gpu, cpu, f32_launches,
+                       masks=True, route=["gemm", "matmul"], cpu_s=cpu_s)
+    del gpu_pred, cpu_pred
+
+    # cli/predict.py on the directory, then the offline evaluator on the card
+    eval_dir = OUT_DIR / "convert_eval"
+    pred_dir, gt_dir = eval_dir / "pred", eval_dir / "gt"
+    shutil.rmtree(eval_dir, ignore_errors=True)
+    gt_dir.mkdir(parents=True)
+    printed = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(printed):
+        predict_cli.main(["--synthetic", "--amp", "--weights", str(directory),
+                          "--base-c", str(BASE_C), "--save-result", str(pred_dir)])
+    torch.cuda.synchronize()
+    cli_launches = launch_counts()
+    want = {k: v * 2 * N_EVAL_IMAGES for k, v in PER_FORWARD.items()}
+    check(f"loaded weights from {directory}" in printed.getvalue(),
+          f"predict CLI did not load {directory}: {printed.getvalue()[:300]}")
+    check(cli_launches == want, f"predict CLI launches {cli_launches} != {want}")
+    for k in launches:
+        launches[k] += cli_launches[k]
+    ds = SyntheticTPDataset(n=N_EVAL_IMAGES)
+    names = [ds.names[i][-4:] for i in range(N_EVAL_IMAGES)]
+    for i, name in enumerate(names):
+        Image.fromarray((ds[i][1] * 255).astype(np.uint8)).save(gt_dir / f"{name}.png")
+    (eval_dir / "val.txt").write_text("\n".join(names) + "\n")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        hist = evaluating_indicator.main([
+            "--gt-dir", str(gt_dir), "--pred-dir", str(pred_dir),
+            "--txt-dir", str(eval_dir / "val.txt"), "--log-path", str(eval_dir / "eval.log"),
+            "--out-dir", str(eval_dir), "--device", "cuda"])
+    eval_s = time.perf_counter() - t0
+    ref = eval_confmat(gt_dir, pred_dir, names)
+    check(np.array_equal(hist, ref), f"evaluator confusion {hist.tolist()} != {ref.tolist()}")
+    rows = (eval_dir / "confusion_matrix.csv").read_text().splitlines()[1:]
+    csv_hist = np.array([[int(v) for v in r.split(",")[1:]] for r in rows])
+    check(np.array_equal(csv_hist, ref), f"confusion CSV {csv_hist.tolist()} != {ref.tolist()}")
+    check(int(ref.sum()) == N_EVAL_IMAGES * 565 * 752, f"confusion total {int(ref.sum())}")
+
+    # one forward under StepTimer and trace
+    pred = converted_predictor(directory, "egm_unet", "gemm", "matmul", "bfloat16", "cuda")
+    x = bucket_batch(pred, raws)
+    pred.forward(x)
+    timer = StepTimer()
+    trace_dir = OUT_DIR / "convert_serve_trace"
+    with trace(str(trace_dir)):
+        with timer.phase("forward"):
+            pred.forward(x)
+            device_synchronized("cuda")
+    text = (trace_dir / "trace.json").read_text()
+    symbols = {"mca_fused": "mca_tile_kernel", "conv3x3_gemm": "conv3x3_mma_kernel",
+               "up_concat_conv": "upconv_mma_kernel"}
+    missing = [k for k, sym in symbols.items() if sym not in text]
+    check(not missing, f"trace.json names no launch of {missing}")
+    del pred
+    rec = {"phase": "convert_serve", "models": list(CONVERT_MODELS), "base_c": BASE_C,
+           "convert_s": conv["seconds"], "convert_log": conv["logs"],
+           "routes": per_model, "launches": launches, "predict_cli_launches": cli_launches,
+           "eval_confmat": ref.tolist(), "eval_s": eval_s,
+           "eval_miou": float(np.mean(np.diag(ref) / np.maximum(
+               ref.sum(0) + ref.sum(1) - np.diag(ref), 1))),
+           "step_timer_ms": timer.totals["forward"] * 1e3,
+           "trace_bytes": len(text), "card": dev["nvidia_smi"]}
+    emit(rec)
+    return rec
+
+
+def phase_convert_clip(dev, conv: dict) -> dict:
+    """The ``--kind clip --stretch-long`` output read back by
+    ``load_converted_clip`` into the fusion phase's CLIPSeg (rd64 over
+    ViT-B/16, batch 32 at 352 px, bf16): its logits bit-equal to the same
+    forward on ``load_clip_checkpoint(.pt, stretch_to_long=True)``'s
+    weights, K6's launches counted."""
+    cfg, state = load_converted_clip(str(conv["clip_out"]))
+    check(cfg == VIT_B16, f"converted CLIP config {cfg} != VIT_B16")
+    _, direct = load_clip_checkpoint(str(conv["clip_pt"]), stretch_to_long=True)
+    check(set(state) == set(direct) and all(torch.equal(state[k], direct[k]) for k in state),
+          "the converted file's state differs from load_clip_checkpoint's")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    x = torch.randn(CLIP_BATCH, CLIP_SIZE, CLIP_SIZE, 3, generator=gen).cuda()
+    outs, counts = {}, {}
+    for route, weights in (("converted", state), ("load_clip_checkpoint", direct)):
+        # the same decoder (one seed) over each route's tower
+        model = CLIPDensePredT(clip_cfg=cfg, reduce_dim=64, extract_layers=(3, 6, 9))
+        init_weights(model, torch.Generator().manual_seed(SEED))
+        model.clip.load_state_dict(weights)
+        model = cast_weights(model.to("cuda"), torch.bfloat16).eval()
+        conds = model.compute_conditional(prompt_tokens().cuda()).float().repeat(
+            CLIP_BATCH // 2, 1)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        (outs[route],) = model(x, conds)
+        torch.cuda.synchronize()
+        counts[route] = launch_counts()
+        check(counts[route] == PER_CLIPSEG_FORWARD,
+              f"{route} CLIPSeg launches {counts[route]} != {PER_CLIPSEG_FORWARD}")
+        del model
+    a, b = outs["converted"], outs["load_clip_checkpoint"]
+    check(tuple(a.shape) == (CLIP_BATCH, CLIP_SIZE, CLIP_SIZE, 1)
+          and bool(torch.isfinite(a).all()), f"converted CLIPSeg logits {tuple(a.shape)}")
+    check(torch.equal(a, b), f"converted vs direct CLIPSeg logits differ by "
+                             f"{(a - b).abs().max().item()}")
+    rec = {"phase": "convert_clip", "config": dataclasses.asdict(cfg), "stretch_long": True,
+           "tensors": len(state), "launches": counts["converted"], "logits_bit_equal": True,
+           "clip_batch": CLIP_BATCH, "clip_size": CLIP_SIZE, "dtype": "bfloat16",
+           "card": dev["nvidia_smi"]}
+    emit(rec)
+    del x, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_vitseg(dev) -> None:
+    """VITDensePredT at the published width (ViT-B/16 at 384, 12 layers, rd64,
+    extract (3, 6, 9)) on seeded weights, float32 with TF32 off: card
+    against CPU on 2 images at ``card_vs_cpu``'s bound, and a batch of 8
+    timed on the card.  No hand-written kernel runs here."""
+    model = VITDensePredT(extract_layers=(3, 6, 9), reduce_dim=64)
+    init_weights(model, torch.Generator().manual_seed(SEED)).eval()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    img = torch.randn(BATCH, 352, 352, 3, generator=gen)  # resized to 384 inside
+    cond = torch.randn(BATCH, 512, generator=gen)
+    t0 = time.perf_counter()
+    (cpu,) = model(img[:2], cond[:2])
+    cpu_s = time.perf_counter() - t0
+    model = model.to("cuda")
+    reset_launch_counts()
+    (gpu,) = model(img[:2].cuda(), cond[:2].cuda())
+    launches = launch_counts()
+    check(not any(launches.values()), f"VITDensePredT launched {launches}")
+    res = model.resolution
+    check(tuple(gpu.shape) == (2, res, res, 1), f"VITDensePredT logits {tuple(gpu.shape)}")
+    card_vs_cpu_record("vitseg", [2, 352, 352, 3], gpu.cpu(), cpu, launches, masks=False,
+                       cpu_s=cpu_s)
+    xb, cb = img.cuda(), cond.cuda()
+    ms = time_ms(lambda: model(xb, cb), reps=5, warm=1)
+    emit({"phase": "vitseg", "batch": BATCH, "resolution": res, "dtype": "float32",
+          "tf32": False, "ms_per_batch": ms, "img_per_s": BATCH / ms * 1e3,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": dev["nvidia_smi"]})
+    del model, xb, cb
+    torch.cuda.empty_cache()
+
+
+def phase_extra_modules(dev) -> None:
+    """The reference's unwired modules (``nn/extra.py``) at C=64, 144x192,
+    batch 8, float32, seeded weights: card against CPU at ``card_vs_cpu``'s
+    bound each; HEGDC in eval mode on randomised running statistics."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    x = torch.randn(BATCH, 144, 192, 64, generator=gen)
+    hegdc = init_weights(extra.HEGDC(64, 64), gen)
+    for bn in (hegdc.bn1, hegdc.bn2):
+        bn.mean.copy_(torch.randn(64, generator=gen) * 0.3)
+        bn.var.copy_(0.5 + 1.5 * torch.rand(64, generator=gen))
+    cases = {"ELA": init_weights(extra.ELA(64), gen).eval(),
+             "WConv2d": init_weights(extra.WConv2d(64, 64), gen).eval(),
+             "HEGDC": hegdc.eval(),
+             "scharr_conv": extra.scharr_conv, "sobel_conv": extra.sobel_conv,
+             "soft_pooling_2d": extra.soft_pooling_2d}
+    times = {}
+    for name, fn in cases.items():
+        cpu = fn(x)
+        if isinstance(fn, torch.nn.Module):
+            fn = fn.to("cuda")
+        xc = x.cuda()
+        gpu = fn(xc)
+        card_vs_cpu_record(f"extra_{name}", list(x.shape), gpu.float().cpu(), cpu.float(),
+                           launch_counts(), masks=False)
+        times[name] = time_ms(lambda: fn(xc), reps=5, warm=1)
+    emit({"phase": "extra_modules", "shape": list(x.shape), "dtype": "float32",
+          "ms": times, "card": dev["nvidia_smi"]})
+
+
+def synthetic_merges(n: int = 3000, seed: int = SEED):
+    """A seeded BPE merge list over a-z: each merge joins two symbols made
+    so far, the right one a word end (``</w>``) a third of the time.
+    Returns the merges and the symbols they made (inner, word ends)."""
+    rng = np.random.default_rng(seed)
+    inner = list("abcdefghijklmnopqrstuvwxyz")
+    ends = [c + "</w>" for c in inner]
+    merges, seen = [], set()
+    while len(merges) < n:
+        a = inner[rng.integers(len(inner))]
+        end = rng.random() < 1 / 3
+        b = (ends if end else inner)[rng.integers(len(ends) if end else len(inner))]
+        if (a, b) in seen or len(a) + len(b) > 16:
+            continue
+        seen.add((a, b))
+        merges.append((a, b))
+        (ends if end else inner).append(a + b)
+    return merges, inner, ends
+
+
+def phase_native_bpe(dev) -> None:
+    """The native BPE merge loop built on this machine (``g++``, into the
+    build directory) against the Python loop on 128 seeded prompts of 60
+    words (Long-CLIP's 248-token context, truncated), each word one to three
+    merged symbols and a merged word end, so that the merges apply: equal
+    ids, and each loop's prompts per second on a fresh tokenizer (host
+    clock)."""
+    merges, inner, ends = synthetic_merges()
+    rng = np.random.default_rng(SEED + 7)
+
+    def word():
+        parts = [inner[i] for i in rng.integers(0, len(inner), int(rng.integers(1, 4)))]
+        return "".join(parts) + ends[rng.integers(len(ends))][:-len("</w>")]
+
+    texts = [" ".join(word() for _ in range(60)) for _ in range(128)]
+    t0 = time.perf_counter()
+    native.build_library("bpe")
+    build_s = time.perf_counter() - t0
+    ids, rates = {}, {}
+    for loop in ("python", "native"):
+        tok = SimpleTokenizer(merges=merges, native=loop == "native")
+        check(tok.merge_loop == loop, f"tokenizer runs {tok.merge_loop}, not {loop}")
+        t0 = time.perf_counter()
+        ids[loop] = tokenize(texts, truncate=True, tokenizer=tok)
+        rates[loop] = len(texts) / (time.perf_counter() - t0)
+    check(np.array_equal(ids["native"], ids["python"]), "native BPE ids differ from Python's")
+    merged = int((ids["python"] > 511).sum())  # ids past the byte symbols: merges applied
+    check(merged > 0, "the synthetic merges merged nothing")
+    emit({"phase": "native_bpe", "prompts": len(texts), "merges": len(merges),
+          "build_s": build_s, "prompts_per_s": rates,
+          "native_over_python": rates["native"] / rates["python"],
+          "merged_tokens": merged, "ids_equal": True, "host": dev["nvidia_smi"]})
+
+
 def summary(records, main_paths: dict) -> list:
     """Per kernel: times summed over one forward's launches at the path shape
     (each shape's time times its sites per forward): ``ms`` with the host's
@@ -2588,6 +3106,17 @@ def main() -> None:
     del pred, httpd, batcher
     torch.cuda.empty_cache()
     mark("serving_fusion")
+    # reference checkpoints converted and served; the rest of the tail
+    with torch.inference_mode(), tempfile.TemporaryDirectory() as work:
+        conv = convert_all(Path(work))
+        main_paths["convert_serve"] = phase_convert_serve(dev, conv)["launches"]
+        main_paths["convert_clip"] = phase_convert_clip(dev, conv)["launches"]
+    with torch.inference_mode():
+        phase_vitseg(dev)
+        phase_extra_modules(dev)
+    phase_native_bpe(dev)
+    torch.cuda.empty_cache()
+    mark("convert_tail")
     # training: autograd on, the BatchNorm graph, no hand-written kernel
     phase_guard()
     main_paths["train"] = phase_train(dev)

@@ -19,7 +19,8 @@ Run:  python -m egm_unet_torch.cli.serve --weights unet.pt --port 8000
           --conv-impl pair --upsample-impl fused
       python -m egm_unet_torch.cli.serve --weights unet.pt --quant int8df
 
-``--weights`` is a file holding the model's ``state_dict``
+``--weights`` is a file holding the model's ``state_dict``, or a checkpoint
+directory (``cli/train.py``'s, or ``cli/convert.py --kind egm``'s), folded
 (``Predictor.from_checkpoint``).
 """
 

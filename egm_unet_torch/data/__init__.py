@@ -2,6 +2,7 @@
 synthetic generators and the batch loader."""
 
 from egm_unet_torch.data.dataset import DriveDataset, collate_pad  # noqa: F401
+from egm_unet_torch.data.fewshot import FewShotSegDataset  # noqa: F401
 from egm_unet_torch.data.synthetic import (  # noqa: F401
     SyntheticTPDataset,
     synthetic_tp_batch,

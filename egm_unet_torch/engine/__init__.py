@@ -15,6 +15,7 @@ from egm_unet_torch.engine.state import (  # noqa: F401
     sgd_torch,
 )
 from egm_unet_torch.engine.train import (  # noqa: F401
+    eval_step,
     make_eval_step,
     make_train_multistep,
     make_train_step,

@@ -182,6 +182,14 @@ def make_eval_step(num_classes: int = 2, ignore_index: int = 255,
     return eval_step
 
 
+def eval_step(state, images, targets, confmat, dice_state, num_classes: int = 2,
+              ignore_index: int = 255):
+    """One eval batch: ``make_eval_step(num_classes, ignore_index)``'s step
+    called once (the JAX package's jitted ``eval_step``)."""
+    return make_eval_step(num_classes, ignore_index)(state, images, targets, confmat,
+                                                     dice_state)
+
+
 def reduce_eval(confmat: torch.Tensor, dice_state: M.DiceState,
                 group: Optional[DataGroup]):
     """The confusion matrix and dice state of every rank's eval batches

@@ -1,12 +1,14 @@
-"""Byte-pair-encoding tokenizer (CLIP's standard BPE), port of the Python
-path of ``egm_unet_tpu/models/clip/tokenizer.py``.
+"""Byte-pair-encoding tokenizer (CLIP's standard BPE), port of
+``egm_unet_tpu/models/clip/tokenizer.py``.
 
 The merges vocabulary (``bpe_simple_vocab_16e6.txt.gz``) is data distributed
 with upstream CLIP; like the model weights it is loaded from a user-supplied
 path (search order: ``$EGM_CLIP_BPE``, ``./weights/bpe_simple_vocab_16e6.txt.gz``,
 the package's ``assets/``), or a merge list is passed as ``merges=``.  The
-merge loop runs in Python; the JAX package's native C++ loop is a host
-speed-up that is not ported.
+pre-split is Python's (the token regex); the merge loop runs in Python, or,
+with ``native=True``, in the C++ loop of ``egm_unet_torch/native/bpe.cpp``
+(built at first use; ``native=True`` raises where it cannot be built, it
+never drops to Python).  ``SimpleTokenizer.merge_loop`` names the loop.
 
 Long-CLIP contract: default context length 248 = 77 * 4 - 60; truncation
 keeps the EOT token.
@@ -14,6 +16,7 @@ keeps the EOT token.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import gzip
 import html
@@ -102,7 +105,8 @@ def find_vocab(path: str | None = None) -> str:
 
 
 class SimpleTokenizer:
-    def __init__(self, bpe_path: str | None = None, merges: list | None = None):
+    def __init__(self, bpe_path: str | None = None, merges: list | None = None,
+                 native: bool = False):
         self.byte_encoder = bytes_to_unicode()
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         if merges is None:
@@ -121,6 +125,8 @@ class SimpleTokenizer:
         self.cache = {"<|startoftext|>": "<|startoftext|>",
                       "<|endoftext|>": "<|endoftext|>"}
         self.pat = _token_pattern()
+        self._native = _NativeBPE(vocab, merges) if native else None
+        self.merge_loop = "native" if native else "python"
 
     def bpe(self, token: str) -> str:
         if token in self.cache:
@@ -159,18 +165,63 @@ class SimpleTokenizer:
         return result
 
     def encode(self, text: str) -> List[int]:
-        """Pre-split with CLIP's token regex, then merge each word."""
+        """Pre-split with CLIP's token regex, then merge each word (in the
+        ``merge_loop``)."""
         bpe_tokens: List[int] = []
         text = _whitespace_clean(_basic_clean(text)).lower()
         for token in self.pat.findall(text):
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
-            bpe_tokens.extend(self.encoder[t] for t in self.bpe(token).split(" "))
+            if self._native is not None:
+                bpe_tokens.extend(self._native.encode_word(token, self.encoder))
+            else:
+                bpe_tokens.extend(self.encoder[t] for t in self.bpe(token).split(" "))
         return bpe_tokens
 
     def decode(self, tokens) -> str:
         text = "".join(self.decoder[int(t)] for t in tokens)
         return (bytearray(self.byte_decoder[c] for c in text)
                 .decode("utf-8", errors="replace").replace("</w>", " "))
+
+
+class _NativeBPE:
+    """ctypes binding of the C++ merge loop; builds the library or raises."""
+
+    def __init__(self, vocab, merges):
+        from egm_unet_torch.native import load_library
+
+        lib = load_library("bpe")
+        lib.bpe_create.restype = ctypes.c_void_p
+        lib.bpe_create.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+        lib.bpe_encode_word.restype = ctypes.c_int32
+        lib.bpe_encode_word.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32]
+        lib.bpe_free.restype = None
+        lib.bpe_free.argtypes = [ctypes.c_void_p]
+        symbols = "\n".join(vocab).encode("utf-8")
+        ranks = "\n".join(f"{a} {b}" for a, b in merges).encode("utf-8")
+        self._lib = lib
+        self._handle = ctypes.c_void_p(lib.bpe_create(symbols, ranks))
+        self._cache: dict = {}
+
+    def encode_word(self, token: str, encoder) -> list:
+        """The merged ids of one pre-split word (byte-encoded)."""
+        cached = self._cache.get(token)
+        if cached is not None:
+            return cached
+        init = [encoder[c] for c in token[:-1]] + [encoder[token[-1] + "</w>"]]
+        n = len(init)
+        in_arr = (ctypes.c_int32 * n)(*init)
+        out_arr = (ctypes.c_int32 * n)()
+        m = self._lib.bpe_encode_word(self._handle, in_arr, n, out_arr, n)
+        ids = list(out_arr[:m])
+        self._cache[token] = ids
+        return ids
+
+    def __del__(self):
+        handle = getattr(self, "_handle", None)
+        if handle is not None:
+            self._lib.bpe_free(handle)
 
 
 _tokenizer_cache: dict = {}

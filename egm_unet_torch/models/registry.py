@@ -15,7 +15,7 @@ from egm_unet_torch.models.egm_unet import EGMUNet
 from egm_unet_torch.models.unet import UNet, Up
 from egm_unet_torch.nn.attention import MCAGate
 from egm_unet_torch.nn.grfb import FusionConv
-from egm_unet_torch.nn.layers import Conv, uniform_
+from egm_unet_torch.nn.layers import Conv, torch_bias_init, torch_kernel_init, uniform_
 
 # name -> EGMUNet kwargs (block, use_rga, use_mca)
 MODEL_CONFIGS = {
@@ -50,10 +50,9 @@ def init_reference(model: nn.Module, generator: torch.Generator) -> nn.Module:
     module in registration order."""
     for mod in model.modules():
         if isinstance(mod, Conv):
-            bound = 1.0 / math.sqrt(mod.kernel[..., 0].numel())
-            uniform_(mod.kernel, bound, generator)
+            torch_kernel_init(mod.kernel, generator)
             if mod.bias is not None:
-                uniform_(mod.bias, bound, generator)
+                torch_bias_init(mod.bias, generator, mod.kernel[..., 0].numel())
         elif isinstance(mod, FusionConv):
             for name, p in mod.named_parameters(recurse=False):
                 fan = (p.shape[0] * p.shape[1] * p.shape[2] if p.ndim == 4

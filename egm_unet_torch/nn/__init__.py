@@ -22,4 +22,6 @@ from egm_unet_torch.nn.layers import (  # noqa: F401
     cast_weights,
     pad_to_match,
     remat,
+    torch_bias_init,
+    torch_kernel_init,
 )

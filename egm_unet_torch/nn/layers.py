@@ -64,6 +64,24 @@ def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
         t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
 
 
+def torch_kernel_init(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``t`` (a kernel with its output axis last: HWIO, or a ``Dense``
+    [in, out]) uniform in +-1/sqrt(fan_in), fan_in the product of every axis
+    but the last: PyTorch's default conv and linear initialisation, which
+    the JAX package draws as ``variance_scaling(1/3, "fan_in", "uniform")``.
+    Returns ``t``."""
+    uniform_(t, 1.0 / math.sqrt(math.prod(t.shape[:-1])), generator)
+    return t
+
+
+def torch_bias_init(t: torch.Tensor, generator: torch.Generator,
+                    fan_in: int = 1) -> torch.Tensor:
+    """Fill ``t`` uniform in +-1/sqrt(fan_in), PyTorch's default bias
+    initialisation.  Returns ``t``."""
+    uniform_(t, 1.0 / math.sqrt(fan_in), generator)
+    return t
+
+
 class Conv(nn.Module):
     """Conv2d with an HWIO ``kernel`` (kh, kw, in_ch // groups, features)
     and an optional ``bias``; integer symmetric zero padding."""

@@ -1,5 +1,5 @@
-"""NHWC x HWIO convolution through ``F.conv2d``, and the stride == kernel
-transposed convolution as a per-token matmul.
+"""NHWC x HWIO convolution through ``F.conv2d`` (and its depthwise form),
+and the stride == kernel transposed convolution as a per-token matmul.
 
 ``x.permute(0, 3, 1, 2)`` is a channels_last view of an NHWC tensor, so no
 copy is made; the result is permuted back to NHWC.  Integer padding ``p``
@@ -27,6 +27,13 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None
                  stride=stride, padding=padding, dilation=dilation,
                  groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
+                     dilation=1) -> torch.Tensor:
+    """Depthwise conv: ``w`` is (kh, kw, 1, C), groups == C."""
+    return conv2d(x, w, stride=stride, padding=padding, dilation=dilation,
+                  groups=x.shape[-1])
 
 
 def conv_transpose2d_nonoverlap(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

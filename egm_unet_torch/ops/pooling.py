@@ -4,6 +4,8 @@
 - ``max_pool2d``: floor mode, explicit -inf padding.
 - ``min_pool2d``: ``-max_pool2d(-x)``.
 - ``avg_pool2d``: ``count_include_pad=True``, zero padding counts in the mean.
+- ``global_avg_pool``, ``global_max_pool``, ``global_std_pool`` over H and W
+  (or ``axes``); the std is torch's unbiased one (divisor N - 1).
 """
 
 from __future__ import annotations
@@ -37,3 +39,16 @@ def avg_pool2d(x: torch.Tensor, kernel=3, stride=1, padding=1) -> torch.Tensor:
     y = F.avg_pool2d(x.permute(0, 3, 1, 2), _pair(kernel), _pair(stride),
                      _pair(padding), count_include_pad=True)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def global_avg_pool(x: torch.Tensor, axes=(1, 2), keepdims: bool = False) -> torch.Tensor:
+    return x.mean(dim=tuple(axes), keepdim=keepdims)
+
+
+def global_max_pool(x: torch.Tensor, axes=(1, 2), keepdims: bool = False) -> torch.Tensor:
+    return x.amax(dim=tuple(axes), keepdim=keepdims)
+
+
+def global_std_pool(x: torch.Tensor, axes=(1, 2), keepdims: bool = False) -> torch.Tensor:
+    """Unbiased std over ``axes`` (``Tensor.std``'s default, ddof 1)."""
+    return x.std(dim=tuple(axes), correction=1, keepdim=keepdims)

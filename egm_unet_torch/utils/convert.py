@@ -7,7 +7,9 @@ Covers two of the reference's checkpoint families:
   tower).
 
 CLIP towers are the ViT or the ModifiedResNet (a tuple ``vision_layers``).
-The GRFB/EGM-UNet ``.pth`` name map is not ported yet (ROADMAP.md).
+The GRFB/EGM-UNet ``.pth`` name map is ``utils/convert_unet.py``;
+``load_converted_clip`` reads back what ``cli/convert.py --kind clip``
+writes.
 
 Layout maps: Linear weight [out, in] -> ``Dense`` kernel [in, out]
 (transpose); Conv2d OIHW -> HWIO; ConvTranspose2d (in, out, kh, kw) ->
@@ -173,6 +175,22 @@ def load_clip_checkpoint(path: str, stretch_to_long: bool = False):
         cfg["context_length"] = pe.shape[0]
         cfg["long_clip"] = True
     return cfg, clip_from_torch(sd, cfg["vision_layers"], cfg["transformer_layers"])
+
+
+def load_converted_clip(path: str):
+    """The file ``cli/convert.py --kind clip`` wrote -> ``(CLIPConfig,
+    state_dict of CLIP)``.  The file keeps the scalar config fields, as the
+    JAX CLI does; a ModifiedResNet tower's per-stage block counts are read
+    back from its parameter names."""
+    from egm_unet_torch.models.clip.model import CLIPConfig
+
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    cfg, params = dict(saved["config"]), saved["params"]
+    if "vision_layers" not in cfg:
+        cfg["vision_layers"] = tuple(
+            len({k.split(".")[1] for k in params
+                 if k.startswith(f"visual.layer{s}_")}) for s in (1, 2, 3, 4))
+    return CLIPConfig(**cfg), params
 
 
 def _torch_encoder_layer(out: dict, sd, src: str, dst: str) -> None:

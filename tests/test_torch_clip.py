@@ -298,7 +298,9 @@ def test_find_vocab_and_native_loop_absent(tmp_path, monkeypatch):
     f = tmp_path / "vocab.txt.gz"
     f.write_bytes(b"")
     assert tokenizer.find_vocab(str(f)) == str(f)
-    assert not hasattr(tokenizer, "_NativeBPE")
+    # the native merge loop is opt-in (native=True); by default it is absent
+    tok = tokenizer.SimpleTokenizer(merges=[("a", "b")])
+    assert tok.merge_loop == "python" and tok._native is None
 
 
 def test_build_vanilla_csa_random():

@@ -75,3 +75,14 @@ def test_parallel_modules_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("parallel/__init__.py", "parallel/mesh.py"):
         assert f"egm_unet_torch/{mod}" in names, mod
+
+
+def test_tail_modules_are_scanned():
+    """The converters, the offline tools, the unwired modules, VITDensePredT
+    and the native BPE loader are scanned."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("utils/convert_unet.py", "utils/colormap.py", "utils/profiling.py",
+                "cli/convert.py", "cli/evaluating_indicator.py", "cli/dataset_audit.py",
+                "cli/compute_mean_std.py", "nn/extra.py", "models/vitseg.py",
+                "native/__init__.py"):
+        assert f"egm_unet_torch/{mod}" in names, mod

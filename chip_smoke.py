@@ -170,7 +170,9 @@ from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU, DoubleConv, cast_wei
 from egm_unet_torch.ops.cuda import (build, conv3x3, csa, launch_counts, mca,
                                      reset_launch_counts, resize2x, upconv)
 from egm_unet_torch.ops.quant import QUANT_MODES, SHIP_QSTORE_SITES
-from egm_unet_torch.parallel import all_reduce_grads, launch, shard_batch
+from egm_unet_torch.parallel import (all_reduce_grads, gather_clip_state, launch,
+                                     shard_batch, shard_batch_spatial, shard_clip,
+                                     use_data_group, use_spatial_group)
 from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_of
 from egm_unet_torch.utils.checkpoint import (best_epoch, folded_state_dict, load_payload,
                                              saved_epochs)
@@ -2530,6 +2532,384 @@ def dp_longclip_world1(group, dev, two_ranks: list) -> dict:
     return dp["launches"]
 
 
+# ------------------------------------------- spatial and tensor parallel
+
+# ranks sharing the one card over gloo (CUDA tensors through the host), each
+# a process; float32, TF32 off.  sp_card: egm_unet at full width on a 1 x 2
+# grid; dp_sp_card: dryrun_multichip's phase 1b (2 x 2, base_c 16, 64 px);
+# tp_card: the Long-CLIP ViT-B/16 tower Megatron-split over 2 model ranks;
+# dp_tp_card: dryrun_multichip's phase 2 tiny Long-CLIP on a 2 x 2 grid
+SP_BATCH, SP_MEM_SIZE, SP_TIMED = 2, 1024, 3
+DP_SP_BASE_C = 16
+TP_BATCH, TP_TIMED = 8, 3
+CSA_TP_SHAPE = (TP_BATCH, (224 // 16) ** 2 + 1, 768 // 2, 12 // 2)  # local heads
+
+
+def f32_exact() -> None:
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def sp_batch(batch: int, size: int, seed: int) -> tuple:
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((batch, size, size, 3)).astype(np.float32)
+    targets = rng.integers(0, 2, (batch, size, size)).astype(np.int64)
+    targets[rng.random(targets.shape) < 0.05] = 255
+    return torch.from_numpy(images), torch.from_numpy(targets)
+
+
+def sp_full_batch() -> tuple:
+    """The first ``SP_BATCH`` of ``train_batches``' 480 crops, on the CPU."""
+    x, t = train_batches(1)[0]
+    return x[:SP_BATCH].cpu(), t[:SP_BATCH].cpu()
+
+
+def sp_state(base_c: int, sched):
+    model = create_model("egm_unet", num_classes=2, base_c=base_c, fold_bn=False,
+                         generator=torch.Generator().manual_seed(SEED))
+    return create_train_state(model.cuda(), sched)
+
+
+def sp_step(grid, base_c: int, sched, batch: tuple, timed: int = 0,
+            dtype=torch.float32) -> dict:
+    """One step of egm_unet (base_c ``base_c``, ``dtype``: float32, or
+    float64 for a reference) on ``batch`` (this rank's part of it on a
+    grid; the whole of it without one) from the seeded weights, and the
+    eval logits of those weights before it: the loss, the state and the
+    gradients after it on the CPU, the collectives and kernel launches of
+    the step; then ``timed`` more steps timed."""
+    state = sp_state(base_c, sched)
+    state.model.to(dtype)
+    if grid is None:
+        x, t = batch
+        ctx, kw = contextlib.nullcontext(), {}
+    else:
+        x, t = shard_batch_spatial(grid, *batch)
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(use_data_group(grid.world))
+        ctx.enter_context(use_spatial_group(grid.inner, batch[0].shape[1]))
+        kw = dict(group=grid.world, spatial=grid.inner)
+    x, t = x.cuda(), t.cuda()
+    with torch.no_grad(), ctx:
+        logits = state.model.eval()(x.to(dtype))["out"].cpu()
+    step = make_train_step(input_dtype=dtype, **kw)
+    counts = (lambda: (0, 0)) if grid is None else (
+        lambda: (grid.inner.collectives, grid.world.collectives))
+    before = counts()
+    reset_launch_counts()
+    state, aux = step(state, x, t)
+    out = {"loss": aux["loss"].item(), "logits": logits,
+           "launches": launch_counts(),
+           "halo_collectives": counts()[0] - before[0],
+           "reduce_collectives": counts()[1] - before[1],
+           "state": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+           "grads": {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}}
+    times = []
+    for _ in range(timed):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, aux = step(state, x, t)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out["ms_per_step_runs"] = times
+    return out
+
+
+def sp_peak_memory(grid) -> float:
+    """Peak device memory (GiB, ``max_memory_allocated`` less what the
+    process held before) of one float32 step of the full-width egm_unet at
+    1024 x 1024, batch 1, from a fresh state: this rank's rows of it on a
+    grid."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    sched = warmup_poly_schedule(TRAIN_LR, 876 // TRAIN_BATCH, 200)
+    batch = sp_batch(1, SP_MEM_SIZE, SEED + 12)
+    state = sp_state(BASE_C, sched)
+    if grid is None:
+        step, (x, t) = make_train_step(input_dtype=torch.float32), batch
+    else:
+        step = make_train_step(input_dtype=torch.float32, group=grid.world,
+                               spatial=grid.inner)
+        x, t = shard_batch_spatial(grid, *batch)
+    state, aux = step(state, x.cuda(), t.cuda())
+    check(bool(math.isfinite(aux["loss"].item())), "sp peak memory: loss not finite")
+    return (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+
+
+def sp_card_rank(grid) -> dict:
+    """One rank of sp_card's 1 x 2 grid: the checked and timed steps at 480,
+    the peak memory at 1024."""
+    f32_exact()
+    sched = warmup_poly_schedule(TRAIN_LR, 876 // TRAIN_BATCH, 200)
+    out = sp_step(grid, BASE_C, sched, sp_full_batch(), SP_TIMED)
+    out["peak_mem_gib_1024"] = sp_peak_memory(grid)
+    return out
+
+
+def dp_sp_card_rank(grid) -> dict:
+    f32_exact()
+    sched = warmup_poly_schedule(DP_SMALL_LR, 5, 3, warmup=False)
+    return sp_step(grid, DP_SP_BASE_C, sched, sp_batch(4, DP_SMALL_SIZE, SEED + 9))
+
+
+def rows_of(ranks: list, key: str) -> torch.Tensor:
+    return torch.cat([r[key] for r in ranks], dim=1)
+
+
+def sp_compare(name: str, ranks: list, one: dict, again: dict, f64: dict, grid: tuple,
+               dev, **extra) -> dict:
+    """Held at dryrun_multichip's bars: the loss 1e-5 relative, the
+    parameters and statistics after the step 1e-4, the eval logits 1e-4;
+    the gradients reported against ``leaf_ratio``'s 1e-3 bar, beside the
+    one-process step's own against a second run of it (``again``) and both
+    against the one-process step in float64 (``f64``), the float32
+    gradients' own distance from exact arithmetic."""
+    n_data, n_inner = grid
+    logits = torch.cat([rows_of(ranks[d * n_inner:(d + 1) * n_inner], "logits")
+                        for d in range(n_data)], dim=0)
+    r0 = ranks[0]
+    rec = {"phase": name, "backend": "gloo", "tensors": "cuda", "grid": list(grid),
+           "devices": 1, "dtype": "float32", "tf32": False, **extra,
+           "loss_sp": r0["loss"], "loss_one": one["loss"],
+           "loss_rel_diff": abs(r0["loss"] - one["loss"]) / abs(one["loss"]),
+           "params_max_abs_diff": max((r0["state"][k] - v).abs().max().item()
+                                      for k, v in one["state"].items()),
+           "logits_max_abs_diff": (logits - one["logits"]).abs().max().item(),
+           "logits_max_abs": one["logits"].abs().max().item(),
+           "grad_worst_over_tol": list(leaf_ratio(r0["grads"], one["grads"], 1e-3)),
+           "grad_one_vs_one_worst_over_tol": list(leaf_ratio(again["grads"], one["grads"],
+                                                             1e-3)),
+           "grad_vs_float64_worst_over_tol": {
+               "row_split": list(leaf_ratio(r0["grads"], f64["grads"], 1e-3)),
+               "one_process": list(leaf_ratio(one["grads"], f64["grads"], 1e-3))},
+           "ranks_identical": all(r["loss"] == r0["loss"] and all(
+               torch.equal(r["state"][k], v) for k, v in r0["state"].items()) for r in ranks),
+           "halo_collectives_per_step": r0["halo_collectives"],
+           "reduce_collectives_per_step": r0["reduce_collectives"],
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in SOURCES},
+           "card": dev["nvidia_smi"]}
+    return rec
+
+
+def sp_check(rec: dict) -> None:
+    name = rec["phase"]
+    check(rec["loss_rel_diff"] <= 1e-5, f"{name}: loss {rec['loss_sp']} vs {rec['loss_one']}")
+    check(rec["params_max_abs_diff"] < 1e-4, f"{name}: params {rec['params_max_abs_diff']}")
+    check(rec["logits_max_abs_diff"] <= 1e-4 * max(1.0, rec["logits_max_abs"]),
+          f"{name}: eval logits {rec['logits_max_abs_diff']}")
+    check(rec["ranks_identical"], f"{name}: the ranks parted")
+    check(rec["halo_collectives_per_step"] > 0, f"{name}: no halo exchanged")
+    check(not any(rec["launches"].values()), f"{name}: kernels launched {rec['launches']}")
+
+
+def phase_sp_card(dev) -> None:
+    """egm_unet at full width (base_c 32, 2 classes, the BatchNorm graph,
+    float32, TF32 off) on a 1 x 2 grid: one step at batch 2 on 480 x 480
+    crops against one process on the card (dryrun_multichip's bars: loss
+    1e-5 relative, parameters 1e-4; eval logits 1e-4), ms per step, the
+    halo and reduce collectives per step, and each rank's peak memory
+    against one process at 1024 x 1024, batch 1 (at most 0.6 of it)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(sp_card_rank, 2, "gloo", grid=(1, 2))
+    wall = time.perf_counter() - t0
+    f32_exact()
+    sched = warmup_poly_schedule(TRAIN_LR, 876 // TRAIN_BATCH, 200)
+    one = sp_step(None, BASE_C, sched, sp_full_batch(), SP_TIMED)
+    again = sp_step(None, BASE_C, sched, sp_full_batch())
+    f64 = sp_step(None, BASE_C, sched, sp_full_batch(), dtype=torch.float64)
+    mem_one = sp_peak_memory(None)
+    rec = sp_compare("sp_card", ranks, one, again, f64, (1, 2), dev, wall_s=wall,
+                     model="egm_unet",
+                     base_c=BASE_C, batch=SP_BATCH, crop=TRAIN_CROP,
+                     lr_first_step=sched(0),
+                     ms_per_step=statistics.median(ranks[0]["ms_per_step_runs"]),
+                     ms_per_step_runs=[r["ms_per_step_runs"] for r in ranks],
+                     plain_ms_per_step=statistics.median(one["ms_per_step_runs"]),
+                     peak_mem_1024={"size": SP_MEM_SIZE, "batch": 1,
+                                    "rank_gib": [r["peak_mem_gib_1024"] for r in ranks],
+                                    "one_process_gib": mem_one})
+    rec["peak_mem_1024"]["worst_rank_share"] = max(
+        rec["peak_mem_1024"]["rank_gib"]) / mem_one
+    emit(rec)
+    sp_check(rec)
+    check(rec["peak_mem_1024"]["worst_rank_share"] <= 0.6,
+          f"sp_card: a rank peaks at {rec['peak_mem_1024']['worst_rank_share']} of one "
+          f"process's memory at {SP_MEM_SIZE}")
+
+
+def phase_dp_sp_card(dev) -> None:
+    """dryrun_multichip's phase 1b: 2 data x 2 spatial ranks, egm_unet base_c
+    16 at 64 px, batch 4, against one process on the card; sp_card's bars."""
+    torch.cuda.empty_cache()
+    ranks = launch(dp_sp_card_rank, 4, "gloo", grid=(2, 2))
+    f32_exact()
+    one, again, f64 = (sp_step(None, DP_SP_BASE_C,
+                               warmup_poly_schedule(DP_SMALL_LR, 5, 3, warmup=False),
+                               sp_batch(4, DP_SMALL_SIZE, SEED + 9), dtype=dtype)
+                       for dtype in (torch.float32, torch.float32, torch.float64))
+    rec = sp_compare("dp_sp_card", ranks, one, again, f64, (2, 2), dev, model="egm_unet",
+                     base_c=DP_SP_BASE_C, batch=4, crop=DP_SMALL_SIZE, lr=DP_SMALL_LR)
+    emit(rec)
+    sp_check(rec)
+
+
+def tp_batch(cfg: CLIPConfig, batch: int, seed: int) -> tuple:
+    gen = torch.Generator().manual_seed(seed)
+    res = cfg.image_resolution
+    return (torch.randn(batch, res, res, 3, generator=gen),
+            *(torch.randint(1, cfg.vocab_size - 1, (batch, cfg.context_length), generator=gen)
+              for _ in range(2)))
+
+
+def tp_clip(cfg: CLIPConfig):
+    return init_weights(CLIP(cfg), torch.Generator().manual_seed(SEED)).cuda()
+
+
+def tp_loss(model, batch, group, world_data: int):
+    """The Long-CLIP loss of this rank's rows (data group ``group``), its
+    backward, and the gradients as the train step reduces them (summed over
+    the data ranks, divided by their number); returns the loss."""
+    loss = make_longclip_loss_fn(group=group)(model, *batch)
+    loss.backward()
+    params = [p for p in model.parameters() if p.requires_grad]
+    if group is None:
+        return loss.item()
+    total = all_reduce_grads(params, group, loss.detach())[0] / world_data
+    for p in params:
+        p.grad.div_(world_data)
+    return total.item()
+
+
+def tp_rank(grid, cfg: CLIPConfig, batch: tuple, ref_path: str, timed: int) -> dict:
+    """One rank of a grid whose inner ranks split the CLIP towers: the loss
+    and its gradients (reassembled by ``gather_clip_state``) held leaf by
+    leaf against one process's in ``ref_path`` (``leaf_ratio``'s 1e-3 bar),
+    K6's launches in the checked pass, and ``timed`` passes timed."""
+    f32_exact()
+    model = shard_clip(tp_clip(cfg), grid.inner)
+    local = tuple(t.cuda() for t in shard_batch(grid.data, *batch))
+    before = grid.inner.collectives
+    reset_launch_counts()
+    loss = tp_loss(model, local, grid.data, grid.n_data)
+    launches = launch_counts()
+    collectives = grid.inner.collectives - before
+    grads = gather_clip_state(model, grid.inner, grads=True)
+    ref = torch.load(ref_path, weights_only=False)
+    out = {"loss": loss, "launches": launches, "model_collectives_per_pass": collectives,
+           "grad_norm": math.sqrt(sum(g.double().pow(2).sum().item()
+                                      for g in grads.values() if g is not None)),
+           "grad_worst_over_tol": list(leaf_ratio(grads, ref["grads"], 1e-3)),
+           "heads": [m.heads for m in model.modules() if hasattr(m, "heads")]}
+    times = []
+    for _ in range(timed):
+        model.zero_grad(set_to_none=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tp_loss(model, local, grid.data, grid.n_data)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out["ms_per_pass_runs"] = times
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def tp_reference(cfg: CLIPConfig, batch: tuple, n_data: int, path: str, timed: int) -> dict:
+    """One process on the card: the loss over the whole batch with the PCA
+    proxy per data rank's block (``longclip_oracle``), its gradients saved
+    to ``path``, and ``timed`` passes of the one-process loss timed."""
+    f32_exact()
+    model = tp_clip(cfg)
+    loss, gnorm = longclip_oracle(model, batch, n_data)
+    torch.save({"grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                          if p.grad is not None}}, path)
+    full = tuple(t.cuda() for t in batch)
+    times = []
+    for _ in range(timed):
+        model.zero_grad(set_to_none=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tp_loss(model, full, None, 1)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"loss": loss, "grad_norm": gnorm, "ms_per_pass_runs": times,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def tp_phase(name: str, cfg: CLIPConfig, grid: tuple, batch_size: int, timed: int,
+             dev, **extra) -> dict:
+    """A grid of data x model ranks on the card against one process: the
+    loss within 1e-4, the gradient norm within 1e-3 relative
+    (dryrun_multichip's bars), every gradient leaf within 1e-3 of its
+    largest + 1e-6 (text_train_card_vs_cpu's), one K6 launch per rank."""
+    torch.cuda.empty_cache()
+    batch = tp_batch(cfg, batch_size, SEED + 13)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "grads.pt")
+        one = tp_reference(cfg, batch, grid[0], path, timed)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch(tp_rank, grid[0] * grid[1], "gloo", cfg, batch, path, timed, grid=grid)
+        wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in SOURCES}
+    rec = {"phase": name, "backend": "gloo", "tensors": "cuda", "grid": list(grid),
+           "devices": 1, "dtype": "float32", "tf32": False, "batch": batch_size,
+           "wall_s": wall, **extra, "loss_tp": r0["loss"], "loss_one": one["loss"],
+           "loss_abs_diff": abs(r0["loss"] - one["loss"]),
+           "grad_norm_tp": r0["grad_norm"], "grad_norm_one": one["grad_norm"],
+           "grad_norm_rel_diff": abs(r0["grad_norm"] - one["grad_norm"])
+           / max(one["grad_norm"], 1.0),
+           "grad_worst_over_tol": [r["grad_worst_over_tol"] for r in ranks],
+           "k6_launches_per_rank": [r["launches"]["csa_attention"] for r in ranks],
+           "launches": launches, "heads_rank0": r0["heads"],
+           "model_collectives_per_pass": r0["model_collectives_per_pass"],
+           "ms_per_pass": statistics.median(r0["ms_per_pass_runs"]) if timed else None,
+           "ms_per_pass_runs": [r["ms_per_pass_runs"] for r in ranks],
+           "plain_ms_per_pass": statistics.median(one["ms_per_pass_runs"]) if timed else None,
+           "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
+           "plain_peak_mem_gib": one["peak_mem_gib"], "card": dev["nvidia_smi"]}
+    emit(rec)
+    check(rec["loss_abs_diff"] < 1e-4, f"{name}: loss {r0['loss']} vs {one['loss']}")
+    check(rec["grad_norm_rel_diff"] < 1e-3, f"{name}: gradient norm {rec['grad_norm_rel_diff']}")
+    check(all(w[0] <= 1.0 for w in rec["grad_worst_over_tol"]),
+          f"{name}: a gradient leaf past 1e-3 of its largest: {rec['grad_worst_over_tol']}")
+    check(rec["k6_launches_per_rank"] == [1] * len(ranks),
+          f"{name}: K6 launches per rank {rec['k6_launches_per_rank']}")
+    return launches
+
+
+def phase_tp_card(dev, records: list) -> dict:
+    """The Long-CLIP ViT-B/16 tower with the 248-token text tower (random
+    weights) Megatron-split over 1 data x 2 model ranks, batch 8, against one
+    process; K6 runs on each rank's 6 of the 12 vision heads, on the
+    ``chunk`` views of its [8, 197, 1152] in_proj output, and is held here
+    against ``csa_plain`` at that shape.  Returns the launches of the
+    checked pass (K6 once per rank)."""
+    f32_exact()
+    records.append(kernel_record("tp_card: clip.visual.resblock11, 6 local heads",
+                                 csa_call(CSA_TP_SHAPE, torch.float32, views=True), 5))
+    check(records[-1]["variant"] == PATH_VARIANTS["csa_attention"]["float32"],
+          f"K6 float32 at {CSA_TP_SHAPE}: variant {records[-1]['variant']}")
+    return tp_phase("tp_card", VIT_B16, (1, 2), TP_BATCH, TP_TIMED, dev,
+                    model="CLIP(VIT_B16), random towers")
+
+
+def phase_dp_tp_card(dev) -> None:
+    """dryrun_multichip's phase 2: its tiny Long-CLIP on 2 data x 2 model
+    ranks, batch 8, against one process with the PCA proxy per data rank."""
+    cfg = CLIPConfig(embed_dim=32, image_resolution=32, vision_layers=2, vision_width=64,
+                     vision_patch_size=16, context_length=16, vocab_size=128,
+                     transformer_width=64, transformer_heads=2, transformer_layers=2,
+                     long_clip=True)
+    tp_phase("dp_tp_card", cfg, (2, 2), 8, 0, dev, model="dryrun_multichip's tiny Long-CLIP")
+
+
 # ------------------------------------------- reference checkpoints, the tail
 
 CONVERT_MODELS = ("egm_unet", "egm_unet_ab")  # with MCA, and the yuan layout
@@ -3146,6 +3526,12 @@ def main() -> None:
     two_ranks = phase_dp_two_ranks_card(dev)
     main_paths["dp_longclip"] = launch(dp_longclip_world1, 1, "nccl", dev, two_ranks)[0]
     mark("data_parallel")
+    # spatial and tensor parallel: ranks sharing the card over gloo
+    phase_sp_card(dev)
+    phase_dp_sp_card(dev)
+    main_paths["tp_card"] = phase_tp_card(dev, records)
+    phase_dp_tp_card(dev)
+    mark("spatial_tensor")
     kernels = summary(records, main_paths)
     emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t0})
     print(dev["nvidia_smi"])

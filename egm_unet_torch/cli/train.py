@@ -24,12 +24,24 @@ CLI.  --batch-size is the global batch; each rank loads and steps on its
 rows of it (by microbatch with --grad-accum), the BatchNorms and the loss
 reduce over the global batch, the eval set is split by batches and its
 metrics summed, and rank 0 alone prints, writes the results file and saves
-checkpoints.  --mesh-spatial (spatial parallelism) is not ported yet and
-exits.
+checkpoints.
+
+--mesh-spatial S also splits each training image's rows over S ranks
+(spatial parallelism, ``parallel/halo.py``): --mesh-data x S ranks in a grid
+(``parallel.make_grid``), the S ranks of a data rank loading the same rows
+of the batch (one crop and flip stream per data rank) and each stepping on
+its image rows (``shard_batch_spatial``'s split), the BatchNorms, the loss
+and the gradients reduced over every rank.  --mesh-data then defaults to
+the visible GPUs / S (1 on the CPU).  Validation images are not split: the
+eval batches go round all the ranks whole, and checkpoints are written as
+under --mesh-data, as in the JAX CLI.  The crop's fifth stage must leave
+every spatial rank a row (480 px over up to 30 ranks).
 
     python -m egm_unet_torch.cli.train --synthetic --amp --epochs 2
     python -m egm_unet_torch.cli.train --synthetic --device cpu --mesh-data 2 \
         --base-c 8 --batch-size 4 --epochs 1
+    python -m egm_unet_torch.cli.train --synthetic --device cpu --mesh-spatial 2 \
+        --base-c 8 --batch-size 2 --epochs 1
 """
 
 from __future__ import annotations
@@ -82,10 +94,11 @@ def parse_args(argv=None):
                         "one index vector per step (implies --device-aug)")
     p.add_argument("--eval-size", default=565, type=int)
     p.add_argument("--mesh-data", default=None, type=int,
-                   help="data-parallel ranks (default: every visible GPU; 1 "
-                        "on the CPU or with --device-cache)")
+                   help="data-parallel ranks (default: every visible GPU / "
+                        "--mesh-spatial; 1 on the CPU or with --device-cache)")
     p.add_argument("--mesh-spatial", default=1, type=int,
-                   help="not ported yet (ROADMAP queue 1 item 11)")
+                   help="spatial ranks per data rank: each training image's "
+                        "rows split over them")
     p.add_argument("--save-dir", default="save_weights")
     p.add_argument("--save-every", default=100, type=int,
                    help="periodic checkpoint cadence in epochs (best-dice "
@@ -112,15 +125,11 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """Exit non-zero for --mesh-spatial, whose module is not ported, and for
-    --steps-per-dispatch > 1 with the device-side augmentation (the
-    multi-step stacks host batches)."""
+    """Exit non-zero for --steps-per-dispatch > 1 with the device-side
+    augmentation (the multi-step stacks host batches)."""
     if (args.device_aug or args.device_cache) and args.steps_per_dispatch > 1:
         raise SystemExit("--steps-per-dispatch > 1 needs host-side transforms; "
                          "drop --device-aug / --device-cache")
-    if args.mesh_spatial != 1:
-        raise SystemExit("--mesh-spatial: spatial parallelism is not ported yet "
-                         "(ROADMAP.md queue 1 item 11)")
 
 
 def on_cpu(args) -> bool:
@@ -131,25 +140,38 @@ def on_cpu(args) -> bool:
 
 def data_world(args) -> int:
     """The number of data-parallel ranks (--mesh-data, see the module
-    docstring); exits where the run cannot have them."""
+    docstring); exits where the run cannot have them (with --mesh-spatial,
+    --mesh-data x --mesh-spatial ranks)."""
     import torch
+
+    from egm_unet_torch.parallel import check_spatial_height
 
     cpu = on_cpu(args)
     gpus = 0 if cpu else torch.cuda.device_count()
+    spatial = args.mesh_spatial
+    if spatial < 1:
+        raise SystemExit(f"--mesh-spatial {spatial}: at least 1")
     world = args.mesh_data
     if world is None:
-        world = 1 if cpu or args.device_cache else max(1, gpus)
+        world = 1 if cpu or args.device_cache else max(1, gpus // spatial)
     if world < 1:
         raise SystemExit(f"--mesh-data {world}: at least 1")
-    if world > 1:
+    if world * spatial > 1:
         if args.device_cache:
-            raise SystemExit("--device-cache is single-device; drop --mesh-data")
-        if not cpu and world > gpus:
-            raise SystemExit(f"--mesh-data {world}: only {gpus} GPU(s) visible")
+            raise SystemExit("--device-cache is single-device; drop --mesh-data "
+                             "and --mesh-spatial")
+        if not cpu and world * spatial > gpus:
+            raise SystemExit(f"--mesh-data {world} x --mesh-spatial {spatial}: only "
+                             f"{gpus} GPU(s) visible")
         step = world * max(1, args.grad_accum)
         if args.batch_size % step:
             raise SystemExit(f"--batch-size {args.batch_size} must be divisible by "
                              f"--mesh-data x --grad-accum = {step}")
+    if spatial > 1:
+        try:
+            check_spatial_height(args.synthetic_size if args.synthetic else 480, spatial)
+        except ValueError as e:
+            raise SystemExit(f"--mesh-spatial {spatial}: {e}")
     return world
 
 
@@ -159,15 +181,18 @@ def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
     world = data_world(args)
-    if world == 1:
+    spatial = args.mesh_spatial
+    if world * spatial == 1:
         return train(None, args)
     from egm_unet_torch.parallel import launch
 
-    return launch(train, world, "gloo" if on_cpu(args) else "nccl", args)[0]
+    return launch(train, world * spatial, "gloo" if on_cpu(args) else "nccl", args,
+                  grid=(world, spatial) if spatial > 1 else None)[0]
 
 
 def train(group, args) -> dict:
-    """The run on one rank of ``group`` (None: one process)."""
+    """The run on one rank of ``group`` (None: one process; a ``Grid`` with
+    --mesh-spatial)."""
     import torch
 
     from egm_unet_torch import metrics as M
@@ -187,12 +212,17 @@ def train(group, args) -> dict:
                                        make_train_step_accum, reduce_eval,
                                        warmup_poly_schedule)
     from egm_unet_torch.models import create_model
-    from egm_unet_torch.parallel import rank_rows, replicated
+    from egm_unet_torch.parallel import Grid, rank_rows, replicated, row_range
     from egm_unet_torch.utils.checkpoint import CheckpointManager
     from egm_unet_torch.utils.logging import MetricLogger, ResultsWriter
 
     device = resolve_device(args.device)
+    grid = group if isinstance(group, Grid) else None
+    if grid is not None:
+        group = grid.world
     rank, world = (0, 1) if group is None else (group.rank, group.world)
+    # this rank's data rank (the spatial ranks of one load the same rows)
+    d_rank, n_data = (grid.data_rank, grid.n_data) if grid else (rank, world)
     main_rank = rank == 0
     say = print if main_rank else (lambda *a, **k: None)
     if world > 1 and device.type == "cpu":
@@ -210,7 +240,7 @@ def train(group, args) -> dict:
     else:
         # each rank its own stream of random crops and flips
         train_tf = TrainTransform(crop_size=crop,
-                                  seed=args.seed if group is None else [args.seed, rank],
+                                  seed=args.seed if group is None else [args.seed, d_rank],
                                   wire_uint8=args.wire_uint8)
     val_tf = EvalTransform(args.eval_size, wire_uint8=args.wire_uint8)
     if args.synthetic:
@@ -232,7 +262,7 @@ def train(group, args) -> dict:
         raise SystemExit(f"--batch-size {args.batch_size} must be divisible "
                          f"by --grad-accum {accum}")
     # this rank's rows of every global batch, by microbatch
-    rows = None if group is None else rank_rows(args.batch_size, rank, world, accum)
+    rows = None if group is None else rank_rows(args.batch_size, d_rank, n_data, accum)
     train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
                                rows=rows)
     val_loader = BatchLoader(val_ds, args.val_batch_size, shuffle=False,
@@ -261,7 +291,8 @@ def train(group, args) -> dict:
     # the device augmentation normalizes; --wire-uint8 leaves it to the step
     norm = (TP_MEAN, TP_STD) if args.wire_uint8 and not device_aug else None
     step_kw = dict(num_classes=num_classes, dice=not args.no_aux_losses,
-                   normalize=norm, input_dtype=dtype, group=group)
+                   normalize=norm, input_dtype=dtype, group=group,
+                   spatial=grid.inner if grid else None)
     if k_steps > 1:
         train_step = make_train_multistep(accum=accum, **step_kw)
     elif accum > 1:
@@ -279,10 +310,24 @@ def train(group, args) -> dict:
         say(f"device cache: {cache.n} samples, {cache.hbm_bytes / 1e6:.0f} MB "
             f"on {device}")
 
+    # with --mesh-spatial: this rank's rows of each image (the H axis is the
+    # one before W, C in images and before W in targets)
+    h_rows = (slice(*row_range(crop, grid.inner_rank, grid.n_inner)) if grid
+              else slice(None))
+
+    def split_rows(images, targets):
+        return images[..., h_rows, :, :], targets[..., h_rows, :]
+
     # the next batch is narrowed (bf16 images, uint8 masks) and copied from
     # pinned memory in a worker thread while the current step runs
     def prepare(batch):
         return to_device(narrow_for_transfer(batch[0], batch[1], dtype), device)
+
+    def prepare_train(batch):
+        images, targets = batch
+        if not device_aug:
+            images, targets = split_rows(images, targets)
+        return prepare((images, targets))
 
     rows_dev = None if rows is None else torch.as_tensor(rows, device=device)
 
@@ -296,13 +341,13 @@ def train(group, args) -> dict:
             return
         source = train_loader if k_steps == 1 else SuperBatcher(train_loader, k_steps)
         gen = epoch_generator(args.seed, epoch, device) if device_aug else None
-        for images, targets in DevicePrefetcher(source, prepare):
+        for images, targets in DevicePrefetcher(source, prepare_train):
             if gen is not None:
                 # the global batch's draws on every rank, this rank's rows
                 params = draw_params(gen, args.batch_size, src, crop, min_size,
                                      max_size, rows=rows_dev)
-                images, targets = augment_with_params(
-                    to_unit(images), targets, params, TP_MEAN, TP_STD, crop)
+                images, targets = split_rows(*augment_with_params(
+                    to_unit(images), targets, params, TP_MEAN, TP_STD, crop))
                 images = images.to(dtype)
             yield images, targets
 

@@ -22,6 +22,15 @@ each; each rank's images are scored against every text and its texts
 against every image, with targets offset by ``rank * b``; the loss is the
 mean of the ranks' losses, so the summed gradients are divided by the world
 size.
+
+Data x tensor parallel (the JAX package's ``make_longclip_loss_fn(clip,
+mesh=get_mesh(n, m))``): the model is ``parallel.shard_clip``'s shard over a
+grid's model ranks, and ``group`` is the grid's data group (``Grid.data``,
+the data ranks of this rank's model index).  The ranks of one data rank
+hold the same rows; the PCA is per data rank, the features are all-gathered
+over the data group only, and the gradients are all-reduced over it only:
+the model ranks hold different shards, and the Megatron collectives inside
+the towers have already made each shard's gradient whole.
 """
 
 from __future__ import annotations

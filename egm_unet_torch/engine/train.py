@@ -23,17 +23,31 @@ batch's loss (``losses.criterion``); one flat all-reduce after the backward
 pass sums the gradients and the parts of the loss, and every rank makes the
 same update.  The step then equals the one-device step on the global batch:
 ``aux["loss"]`` is the global batch's loss on every rank.
+
+Spatial parallel (``spatial``, a grid's row of spatial ranks; the JAX
+package's step under ``get_mesh_sp``): each rank gets its data rank's rows
+of the batch and of those its image rows (``parallel.shard_batch_spatial``),
+``group`` spans every rank of the grid, and the step runs under
+``use_spatial_group`` at the input's global height (gathered from the
+ranks' row counts on the host, checked against ``row_range``'s split): the
+ops exchange their halos (``parallel/halo.py``), the BatchNorms and the
+loss reduce over every rank, and the gradients are summed over every rank,
+each of which holds a whole replica of the parameters.  A checkpointed
+(remat) block fetches its halos again in the backward pass, in the same
+order on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
 from egm_unet_torch import losses as L
 from egm_unet_torch import metrics as M
-from egm_unet_torch.parallel.mesh import DataGroup, all_reduce_grads, use_data_group
+from egm_unet_torch.parallel.mesh import (DataGroup, all_reduce_grads, global_height,
+                                          use_data_group, use_spatial_group)
 
 
 def _device_normalize(images: torch.Tensor, normalize, input_dtype):
@@ -69,21 +83,36 @@ def _reduce(state, group: Optional[DataGroup], loss: torch.Tensor) -> torch.Tens
     return all_reduce_grads(params, group, loss)[0]
 
 
+def _groups(group: Optional[DataGroup], spatial: Optional[DataGroup], images):
+    """The context of a step: the data group, and the spatial group at the
+    input's global height."""
+    if spatial is None:
+        return use_data_group(group)
+    if group is None:
+        raise ValueError("a spatial step needs the grid's whole group as its data group")
+    stack = contextlib.ExitStack()
+    stack.enter_context(use_data_group(group))
+    stack.enter_context(use_spatial_group(spatial, global_height(spatial, images.shape[-3])))
+    return stack
+
+
 def make_train_step(num_classes: int = 2, dice: bool = True,
                     ignore_index: int = 255, normalize=None, input_dtype=None,
-                    group: Optional[DataGroup] = None):
+                    group: Optional[DataGroup] = None,
+                    spatial: Optional[DataGroup] = None):
     """Returns ``step(state, images, targets) -> (state, aux)``.
     ``normalize=(mean, std)``: images arrive as raw uint8 and are normalised
     on the device; ``input_dtype``: the compute dtype the images are cast
     to; ``group``: data parallel, the images and targets this rank's rows of
-    the global batch."""
+    the global batch; ``spatial``: also row-split over this group of a grid
+    whose every rank ``group`` spans (the module docstring)."""
 
     def train_step(state, images, targets):
         model = state.model
         model.train()
-        # the group stays set through backward(): the recomputed forwards
+        # the groups stay set through backward(): the recomputed forwards
         # of checkpointed blocks all-reduce their BatchNorms' sums again
-        with torch.enable_grad(), use_data_group(group):
+        with torch.enable_grad(), _groups(group, spatial, images):
             x = _inputs(images, normalize, input_dtype)
             loss = _loss(model, x, targets.long(), num_classes, dice, ignore_index)
             state.optimizer.zero_grad(set_to_none=True)
@@ -97,7 +126,8 @@ def make_train_step(num_classes: int = 2, dice: bool = True,
 
 def make_train_step_accum(accum: int, num_classes: int = 2, dice: bool = True,
                           ignore_index: int = 255, normalize=None,
-                          input_dtype=None, group: Optional[DataGroup] = None):
+                          input_dtype=None, group: Optional[DataGroup] = None,
+                          spatial: Optional[DataGroup] = None):
     """Gradient accumulation: the batch of B splits into ``accum``
     microbatches of B / accum, run one after another.  Each forward
     normalises with its microbatch's BatchNorm statistics and updates the
@@ -118,7 +148,7 @@ def make_train_step_accum(accum: int, num_classes: int = 2, dice: bool = True,
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         lsum = torch.zeros((), dtype=torch.float32, device=images.device)
-        with torch.enable_grad(), use_data_group(group):
+        with torch.enable_grad(), _groups(group, spatial, images):
             x = _inputs(images, normalize, input_dtype)
             t = targets.long()
             for i in range(accum):
@@ -139,18 +169,20 @@ def make_train_step_accum(accum: int, num_classes: int = 2, dice: bool = True,
 def make_train_multistep(num_classes: int = 2, dice: bool = True,
                          ignore_index: int = 255, normalize=None,
                          input_dtype=None, accum: int = 1,
-                         group: Optional[DataGroup] = None):
+                         group: Optional[DataGroup] = None,
+                         spatial: Optional[DataGroup] = None):
     """K train steps per call: ``(state, images[K, B, ...], targets[K, B,
     ...]) -> (state, aux)`` with ``aux["loss"]`` a [K] tensor and
     ``aux["lr"]`` a list of K rates, equal to K calls of the single step
     (``accum > 1``: of the accumulation step; ``group``: K data-parallel
-    steps on this rank's rows, ``parallel.shard_superbatch``)."""
+    steps on this rank's rows, ``parallel.shard_superbatch``; ``spatial``:
+    row-split, ``parallel.shard_superbatch_spatial``)."""
     if accum > 1:
         step = make_train_step_accum(accum, num_classes, dice, ignore_index,
-                                     normalize, input_dtype, group)
+                                     normalize, input_dtype, group, spatial)
     else:
         step = make_train_step(num_classes, dice, ignore_index, normalize,
-                               input_dtype, group)
+                               input_dtype, group, spatial)
 
     def multi_step(state, images, targets):
         losses, lrs = [], []

@@ -25,6 +25,15 @@ over the ranks to the loss of the global batch.  One all-reduce per call
 brings the sum of the pixel weights and the first target (rank 0's) to every
 rank.
 
+Under a spatial group as well (``parallel.spatial()``) each rank holds its
+rows of its data rank's images, and the data group spans every rank: the
+cross-entropy's sums and the stencil losses' means add up over the ranks as
+before (the counts are the global batch's: the data ranks' rows times the
+global H x W); each sample's dice sums are summed over the spatial group
+(``spatial_sum``) and each of its S ranks takes 1 / S of the dice term; the
+stencils take their halos; the first target is data rank 0's, reassembled
+from its spatial ranks' rows, and the batch counts the data ranks only.
+
 Layout: logits NHWC ``[B, H, W, C]``, any float dtype (cast to float32);
 targets ``[B, H, W]`` integers.
 """
@@ -38,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from egm_unet_torch.ops.stencil import LAPLACE4, LAPLACE8, SOBEL_X, SOBEL_Y, stencil2d
-from egm_unet_torch.parallel.mesh import data_group
+from egm_unet_torch.parallel.halo import spatial_sum
+from egm_unet_torch.parallel.mesh import data_group, spatial
 
 IGNORE_INDEX = 255
 
@@ -89,14 +99,19 @@ def dice_coeff(x: torch.Tensor, target: torch.Tensor, ignore_index: int = -100,
     """Per-sample dice inside the region of interest, averaged over the
     batch (summed over these rows, divided by ``batch``, the global batch's
     size; default these rows' count); ``x`` and ``target`` are ``[B, ...]``
-    (one channel's probabilities and one-hot targets)."""
+    (one channel's probabilities and one-hot targets).  Row-split, each
+    sample's sums are summed over the spatial group first."""
     b = x.shape[0]
     xf = x.float().reshape(b, -1)
     tf = target.float().reshape(b, -1)
     roi = ((tf != float(ignore_index)).float() if ignore_index >= 0
            else torch.ones_like(tf))
-    inter = (xf * tf * roi).sum(dim=1)
-    sets_sum = (xf * roi).sum(dim=1) + (tf * roi).sum(dim=1)
+    sums = torch.stack([(xf * tf * roi).sum(dim=1), (xf * roi).sum(dim=1),
+                        (tf * roi).sum(dim=1)])
+    if spatial() is not None:
+        sums = spatial_sum(sums)
+    inter = sums[0]
+    sets_sum = sums[1] + sums[2]
     sets_sum = torch.where(sets_sum == 0.0, 2.0 * inter, sets_sum)
     return ((2.0 * inter + epsilon) / (sets_sum + epsilon)).sum() / (batch or b)
 
@@ -121,13 +136,20 @@ def dice_loss(logits: torch.Tensor, target_onehot: torch.Tensor,
     probs = F.softmax(logits.float(), dim=-1)
     fn = multiclass_dice_coeff if multiclass else dice_coeff
     share = 1.0 if batch is None else logits.shape[0] / batch
-    return share - fn(probs, target_onehot, ignore_index=ignore_index, batch=batch)
+    loss = share - fn(probs, target_onehot, ignore_index=ignore_index, batch=batch)
+    sp = spatial()
+    # each of a sample's spatial ranks holds the same dice: 1 / S of it each
+    return loss if sp is None else loss / sp.group.world
 
 
 def _mean(t: torch.Tensor, batch: Optional[int]) -> torch.Tensor:
-    """The sum of ``t`` ``[B, ...]`` over the element count of a batch of
-    ``batch`` (default B) rows."""
-    return t.sum() / (t.numel() // t.shape[0] * (batch or t.shape[0]))
+    """The sum of ``t`` ``[B, H, W]`` over the element count of a batch of
+    ``batch`` (default B) rows (row-split: of the global height)."""
+    sp = spatial()
+    per = t.numel() // t.shape[0]
+    if sp is not None:
+        per = per // t.shape[1] * sp.height
+    return t.sum() / (per * (batch or t.shape[0]))
 
 
 def laplace_loss(logits: torch.Tensor, batch: Optional[int] = None) -> torch.Tensor:
@@ -163,16 +185,28 @@ def _global_batch(target: torch.Tensor, loss_weight, num_classes: int,
     """(global batch size, sum of its pixel weights, its first target as
     float ``[1, H, W]``): this batch's own without a data group, else one
     all-reduce of ``[first target (rank 0's; zeros elsewhere), weight
-    sum]``."""
+    sum]``.  Row-split, the first target is data rank 0's whole map, each of
+    its spatial ranks placing its rows, and this rank keeps its own rows;
+    the batch counts the data ranks, ``group.world / S``."""
     _, pix_w = pixel_weights(target, num_classes, loss_weight, ignore_index)
     first = target[:1].float()
     group = data_group()
     if group is None:
         return target.shape[0], pix_w.sum(), first
-    if group.rank != 0:
+    sp = spatial()
+    n_inner = 1 if sp is None else sp.group.world
+    if sp is not None:  # data rank 0's first map, in global rows
+        lo, hi = sp.rows
+        whole = first.new_zeros((1, sp.height, first.shape[2]))
+        whole[:, lo:hi] = first
+        first = whole
+    if group.rank >= n_inner:  # data rank 0 holds ranks [0, n_inner)
         first = torch.zeros_like(first)
     buf = group.all_reduce(torch.cat([first.reshape(-1), pix_w.sum().reshape(1)]))
-    return target.shape[0] * group.world, buf[-1], buf[:-1].view_as(first)
+    first = buf[:-1].view_as(first)
+    if sp is not None:
+        first = first[:, lo:hi]
+    return target.shape[0] * (group.world // n_inner), buf[-1], first
 
 
 def criterion(outputs: dict, target: torch.Tensor,

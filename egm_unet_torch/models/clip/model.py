@@ -88,7 +88,10 @@ class QuickGELU(nn.Module):
 
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN transformer block with one fused ``in_proj`` split in three
-    along the last axis."""
+    along the last axis.  ``parallel.shard_clip`` makes it tensor parallel:
+    its projections become Megatron shards and ``heads`` this rank's local
+    heads, whose q, k and v are the ``chunk`` views of the local
+    ``in_proj`` output (CSA's kernel K6 takes them as they are)."""
 
     def __init__(self, width: int, heads: int):
         super().__init__()

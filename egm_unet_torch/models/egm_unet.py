@@ -6,6 +6,9 @@ BatchNorm for training (``fold_bn``, ``nn/layers.py``).
 - A' ``block='grfb'``: the original GRFB block instead (GRFB-UNet baseline).
 - B ``use_rga``: RecursiveGatedAttention at the bottleneck.
 - C ``use_mca``: MCALayer between the two convs of each DoubleConv1.
+
+Under a spatial group the training graph runs row-split, each stage in the
+scope of its height, as ``models/unet.py`` describes.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from egm_unet_torch.models.unet import Up
+from egm_unet_torch.models.unet import Up, stage_scopes
 from egm_unet_torch.nn.attention import MCALayer, RecursiveGatedAttention
 from egm_unet_torch.nn.grfb import GRFB, EdgeEnhancedGRFB
 from egm_unet_torch.nn.layers import Conv, ConvBNReLU, DoubleConv, call_maybe_remat
@@ -97,20 +100,35 @@ class EGMUNet(nn.Module):
         self.up3 = Up(2 * c, 2 * c, c, **impls)
         self.up4 = Up(c, c, c, **impls)
         self.out_conv = Conv(c, num_classes, 1)
+        self.fold_bn = fold_bn
 
     def forward(self, x: torch.Tensor) -> dict:
         stage = lambda mod, *args: call_maybe_remat(self.remat, mod, *args)
         # the pooled maps are int8 storage sites ``:pool1`` .. ``:pool4``
         pool = lambda v, tag: qstore(self, max_pool2d(v), tag)
-        x1 = stage(self.in_conv, x)
-        x2 = stage(self.down1, pool(x1, "pool1"))
-        x3 = stage(self.down2, pool(x2, "pool2"))
-        x4 = stage(self.down3, pool(x3, "pool3"))
-        x5 = stage(self.down4, pool(x4, "pool4"))
-        if self.attn1 is not None:
-            x5 = self.attn1(x5)
-        x = stage(self.up1, x5, x4)
-        x = stage(self.up2, x, x3)
-        x = stage(self.up3, x, x2)
-        x = stage(self.up4, x, x1)
-        return {"out": self.out_conv(x).float()}
+        at = stage_scopes(self, self.fold_bn)
+        with at(0):
+            x1 = stage(self.in_conv, x)
+            p = pool(x1, "pool1")  # a pool reads the rows of the stage above
+        with at(1):
+            x2 = stage(self.down1, p)
+            p = pool(x2, "pool2")
+        with at(2):
+            x3 = stage(self.down2, p)
+            p = pool(x3, "pool3")
+        with at(3):
+            x4 = stage(self.down3, p)
+            p = pool(x4, "pool4")
+        with at(4):
+            x5 = stage(self.down4, p)
+            if self.attn1 is not None:
+                x5 = self.attn1(x5)
+        with at(3):
+            x = stage(self.up1, x5, x4)
+        with at(2):
+            x = stage(self.up2, x, x3)
+        with at(1):
+            x = stage(self.up3, x, x2)
+        with at(0):
+            x = stage(self.up4, x, x1)
+            return {"out": self.out_conv(x).float()}

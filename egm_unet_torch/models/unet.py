@@ -1,9 +1,18 @@
 """Vanilla UNet and its decoder stage ``Up`` (port of
 ``egm_unet_tpu/models/unet.py``), BN folded or with BatchNorm for training
-(``fold_bn``, ``nn/layers.py``)."""
+(``fold_bn``, ``nn/layers.py``).
+
+Under a spatial group (``parallel.use_spatial_group``, whose height is the
+input's) the training graph runs on this rank's rows of the image: each
+stage runs in the scope of its own global height (``stage_scopes``), the
+2x2 pools hand over to the next stage's rows, and ``Up`` upsamples and pads
+in global rows (``nn.layers.up_to_match``).  The folded graph refuses a
+spatial group (ValueError): the JAX package row-splits the BatchNorm graph
+only, and the serving kernels take whole maps."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -13,6 +22,20 @@ from egm_unet_torch.nn.layers import Conv, DoubleConv, pad_to_match, uniform_
 from egm_unet_torch.ops.conv import conv_transpose2d_nonoverlap
 from egm_unet_torch.ops.pooling import max_pool2d
 from egm_unet_torch.ops.resize import upsample2x_bilinear_align_corners
+from egm_unet_torch.parallel.mesh import at_height, spatial
+
+
+def stage_scopes(model: nn.Module, fold_bn: bool):
+    """``scope(k)``: the context of stage k of a UNet (global height
+    ``H >> k`` of the spatial scope's H; a no-op context without a spatial
+    group).  Refuses the folded graph under a spatial group."""
+    sp = spatial()
+    if sp is None:
+        return lambda k: contextlib.nullcontext()
+    if fold_bn:
+        raise ValueError(f"{type(model).__name__}: the folded (serving) graph does not "
+                         f"run row-split; build the training graph (fold_bn=False)")
+    return lambda k: at_height(sp.height >> k)
 
 
 class Up(nn.Module):
@@ -47,8 +70,12 @@ class Up(nn.Module):
             uniform_(self.up_kernel, 1.0 / math.sqrt(self.up_kernel.shape[0]), generator)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        split = spatial() is not None  # row-split: the pad in global rows
+        if split and not self.bilinear:
+            raise ValueError("the transposed-conv decoder (bilinear=False) does not "
+                             "run row-split")
         if self.bilinear:
-            if x2.shape[1] == 2 * x1.shape[1] and x2.shape[2] == 2 * x1.shape[2]:
+            if split or (x2.shape[1] == 2 * x1.shape[1] and x2.shape[2] == 2 * x1.shape[2]):
                 return self.DoubleConv_0(up_pair=(x2, x1))
             x1 = upsample2x_bilinear_align_corners(x1, self.upsample_impl)
         else:
@@ -79,15 +106,30 @@ class UNet(nn.Module):
         self.up3 = Up(4 * c // factor, 2 * c, 2 * c // factor, bilinear, **impls)
         self.up4 = Up(2 * c // factor, c, c, bilinear, **impls)
         self.out_conv = Conv(c, num_classes, 1)
+        self.fold_bn = fold_bn
 
     def forward(self, x: torch.Tensor) -> dict:
-        x1 = self.in_conv(x)
-        x2 = self.down1(max_pool2d(x1))
-        x3 = self.down2(max_pool2d(x2))
-        x4 = self.down3(max_pool2d(x3))
-        x5 = self.down4(max_pool2d(x4))
-        x = self.up1(x5, x4)
-        x = self.up2(x, x3)
-        x = self.up3(x, x2)
-        x = self.up4(x, x1)
-        return {"out": self.out_conv(x).float()}
+        at = stage_scopes(self, self.fold_bn)
+        with at(0):
+            x1 = self.in_conv(x)
+            p = max_pool2d(x1)  # a pool reads the rows of the stage above
+        with at(1):
+            x2 = self.down1(p)
+            p = max_pool2d(x2)
+        with at(2):
+            x3 = self.down2(p)
+            p = max_pool2d(x3)
+        with at(3):
+            x4 = self.down3(p)
+            p = max_pool2d(x4)
+        with at(4):
+            x5 = self.down4(p)
+        with at(3):
+            x = self.up1(x5, x4)
+        with at(2):
+            x = self.up2(x, x3)
+        with at(1):
+            x = self.up3(x, x2)
+        with at(0):
+            x = self.up4(x, x1)
+            return {"out": self.out_conv(x).float()}

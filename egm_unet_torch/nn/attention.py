@@ -8,6 +8,11 @@ While calibrating int8 scales, or where its ``xout`` storage site is active
 (``ops/quant.py``), the layer takes the JAX package's unfused route instead:
 the three gated tensors averaged into ``x_out``, its storage site, then the
 enhancement in plain tensor ops.
+
+Under a spatial group (``parallel/halo.py``) each rank holds rows of the
+map: the MCA gates' reductions over H and ChannelAttention's pools sum (and
+take the maximum) over the group, the H gate's 1-D conv and every window op
+fetch their halos.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from egm_unet_torch.ops.cuda.mca import mca_fused, mca_plain
 from egm_unet_torch.ops.pooling import avg_pool2d, max_pool2d, min_pool2d
 from egm_unet_torch.ops.quant import current_quant_mode, qstore, site_active
 from egm_unet_torch.ops.shuffle import channel_shuffle
+from egm_unet_torch.parallel.halo import halo, spatial_max, spatial_sum
+from egm_unet_torch.parallel.mesh import spatial
 
 
 def mca_kernel_size(channels: int) -> int:
@@ -52,21 +59,30 @@ class MCAGate(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         reduce_axes = tuple(a for a in (1, 2, 3) if a != self.axis)
+        sp = spatial()
+        split = sp is not None and self.axis != 1  # a reduction over H
         n = 1
         for a in reduce_axes:
-            n *= x.shape[a]
+            n *= sp.height if split and a == 1 else x.shape[a]
         xf = x.float()
-        avg = xf.mean(dim=reduce_axes)
         keep = [x.shape[0], 1, 1, 1]
         keep[self.axis] = x.shape[self.axis]
-        var = ((xf - avg.reshape(keep)) ** 2).mean(dim=reduce_axes) * (n / max(n - 1, 1))
-        std = var.sqrt()
+        if split:
+            avg = spatial_sum(xf.sum(dim=reduce_axes)) / n
+            var = spatial_sum(((xf - avg.reshape(keep)) ** 2).sum(dim=reduce_axes)) / n
+        else:
+            avg = xf.mean(dim=reduce_axes)
+            var = ((xf - avg.reshape(keep)) ** 2).mean(dim=reduce_axes)
+        std = (var * (n / max(n - 1, 1))).sqrt()
         sw = torch.sigmoid(self.weight)
         blended = 0.5 * (avg + std) + sw[0] * avg + sw[1] * std
         k = self.conv.shape[0]
+        pad = (k - 1) // 2
+        if sp is not None and self.axis == 1:
+            blended, pad = halo(blended, pad), 0
         return torch.sigmoid(F.conv1d(blended[:, None, :],
                                       self.conv.float()[None, None, :],
-                                      padding=(k - 1) // 2)[:, 0, :]).contiguous()
+                                      padding=pad)[:, 0, :]).contiguous()
 
 
 class MCALayer(nn.Module):
@@ -167,8 +183,14 @@ class ChannelAttention(nn.Module):
         self.fc_up = Conv(channels // 4, channels, 1, use_bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        avg = x.mean(dim=(1, 2), keepdim=True)
-        mx = x.amax(dim=(1, 2), keepdim=True)
+        sp = spatial()
+        if sp is None:
+            avg = x.mean(dim=(1, 2), keepdim=True)
+            mx = x.amax(dim=(1, 2), keepdim=True)
+        else:  # this rank's rows: sum and max over the spatial group
+            n = sp.height * x.shape[2]
+            avg = (spatial_sum(x.float().sum(dim=(1, 2), keepdim=True)) / n).to(x.dtype)
+            mx = spatial_max(x.amax(dim=(1, 2), keepdim=True))
         mlp = lambda v: self.fc_up(F.relu(self.fc_down(v)))
         return torch.sigmoid(mlp(avg) + mlp(mx))
 

@@ -15,7 +15,11 @@ chosen by ``fold_bn`` when a block is built, as in the JAX package:
   plain, differentiable PyTorch, no kernel.  ``module.train()`` normalises
   with the batch's statistics (the global batch's under a data group:
   sync-BN, ``parallel/``) and updates the running ones; ``module.eval()``
-  normalises with the running ones.
+  normalises with the running ones.  Under a spatial group each rank holds
+  rows of every map (``parallel/halo.py``): the convs and pools fetch their
+  halos, the BatchNorm sums run over the data group's ranks, which then
+  count the spatial ones, and the decoder's upsample takes the global
+  matrix's rows (``up_to_match``).
 
 Under int8 serving (``ops/quant.py``) every ``Conv`` records its input
 while calibrating and runs ``int8_conv`` in the int8 and int8full modes,
@@ -48,9 +52,9 @@ from egm_unet_torch.ops.cuda.upconv import up_concat_conv
 from egm_unet_torch.ops.pooling import avg_pool2d
 from egm_unet_torch.ops.quant import (INT8_CONV_MODES, convs_on_kernels,
                                       current_quantizer, qstore, site_active)
-from egm_unet_torch.ops.resize import (UPSAMPLE_IMPLS,
-                                       upsample2x_bilinear_align_corners)
-from egm_unet_torch.parallel.mesh import data_group, use_data_group
+from egm_unet_torch.ops.resize import (UPSAMPLE_IMPLS, upsample2x_bilinear_align_corners,
+                                       upsample2x_rows)
+from egm_unet_torch.parallel.mesh import data_group, spatial, use_data_group, use_spatial
 
 CONV_IMPLS = ("gemm", "pair")
 
@@ -190,6 +194,20 @@ def _stat_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
+def _global_count(n: int, shape, group) -> int:
+    """The global batch's element count per channel, on the host, from
+    this rank's ``n``: times the data ranks, and under a spatial group with
+    the scope's global height in place of this rank's rows (the ranks hold
+    unequal rows).  A count all-reduced on the device would make the
+    division a device division, which rounds otherwise than the one-process
+    step's division by a host integer: the data-parallel step at world 1
+    would no longer equal that step bit for bit."""
+    sp = spatial()
+    if sp is None:
+        return n * group.world
+    return n // shape[1] * sp.height * (group.world // sp.group.world)
+
+
 class _BatchNormTrain(torch.autograd.Function):
     """Train-mode BatchNorm over all but the last axis: returns (y, batch
     mean, batch variance), the last two without gradient.  The backward is
@@ -203,8 +221,9 @@ class _BatchNormTrain(torch.autograd.Function):
     Under a data group (sync-BN) the batch is the global one: the forward
     sums the per-channel sums and sums of squares over the ranks in one
     ``[2C]`` all-reduce, the backward ``sum(g)`` and ``sum(g * xhat)`` in
-    another.  The gradients of ``scale`` and ``bias`` stay this rank's own
-    sums: the gradient all-reduce adds them once."""
+    another (``_global_count`` gives the element count).  The gradients of
+    ``scale`` and ``bias`` stay this rank's own sums: the gradient
+    all-reduce adds them once."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps, group):
@@ -215,7 +234,7 @@ class _BatchNormTrain(torch.autograd.Function):
         sums = torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims)])
         if group is not None:
             group.all_reduce(sums)
-            n *= group.world
+            n = _global_count(n, xf.shape, group)
         mean, sq = (sums / n).split(c)
         raw = sq - mean * mean
         var = torch.clamp(raw, min=0.0)
@@ -297,15 +316,16 @@ class BatchNorm(nn.Module):
 
 
 @contextlib.contextmanager
-def _recompute(owner: nn.Module, group):
+def _recompute(owner: nn.Module, group, scope):
     """The context of a checkpointed forward's second run: the running
-    statistics of the BatchNorms in ``owner`` frozen, and the data group of
-    the first run, which the autograd thread running it does not inherit."""
+    statistics of the BatchNorms in ``owner`` frozen, and the data group and
+    spatial scope of the first run, which the autograd thread running it
+    does not inherit."""
     bns = [m for m in owner.modules() if isinstance(m, BatchNorm)]
     for m in bns:
         m.frozen += 1
     try:
-        with use_data_group(group):
+        with use_data_group(group), use_spatial(scope):
             yield
     finally:
         for m in bns:
@@ -317,15 +337,15 @@ def remat(owner: nn.Module, fn, *args, **kwargs):
     package's ``nn.remat``): only the inputs are saved, and the backward pass
     runs ``fn`` again.  That second run leaves the running statistics of the
     BatchNorms in ``owner`` alone, and under a data group all-reduces the
-    BatchNorms' sums again, in the same order on every rank.  A plain call
-    when autograd is off."""
+    BatchNorms' sums again (under a spatial group, fetches the halos again),
+    in the same order on every rank.  A plain call when autograd is off."""
     if not torch.is_grad_enabled():
         return fn(*args, **kwargs)
-    group = data_group()
+    group, scope = data_group(), spatial()
     # no random op in any block, so there is no RNG state to replay
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
                       context_fn=lambda: (contextlib.nullcontext(),
-                                          _recompute(owner, group)), **kwargs)
+                                          _recompute(owner, group, scope)), **kwargs)
 
 
 def call_maybe_remat(on: bool, module: nn.Module, *args, **kwargs):
@@ -373,6 +393,25 @@ def pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return F.pad(x1, (0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
 
 
+def up_to_match(x1: torch.Tensor, x2: torch.Tensor, impl: Optional[str] = None
+                ) -> torch.Tensor:
+    """``x1`` upsampled 2x (``upsample2x_bilinear_align_corners`` by
+    ``impl``) and zero-padded to x2's H and W (``pad_to_match``).  Under a
+    spatial group x2 holds this rank's rows of the scope's height H and x1
+    its rows of the stage below, H // 2: the padded rows are placed in
+    global coordinates (``upsample2x_rows``), so that only the rank holding
+    an odd stage's last row gets its pad."""
+    sp = spatial()
+    if sp is None:
+        return pad_to_match(upsample2x_bilinear_align_corners(x1, impl), x2)
+    if impl not in (None, "matmul"):
+        raise ValueError(f"a row-split upsample runs the matmul route, not {impl!r}")
+    h = sp.height // 2
+    y = upsample2x_rows(x1, h, sp.height, (sp.height - 2 * h) // 2)
+    dx = x2.shape[2] - y.shape[2]
+    return F.pad(y, (0, 0, dx // 2, dx - dx // 2))
+
+
 class ConvBNReLU(nn.Module):
     """conv3x3 (pad 1) -> BatchNorm -> ReLU, one half of DoubleConv.
     ``up_pair=(x2, x1)`` is the decoder form ``relu(BN(conv3x3(concat([x2,
@@ -400,8 +439,7 @@ class ConvBNReLU(nn.Module):
             return qstore(self, y, "out")
         if up_pair is not None:
             x2, x1 = up_pair
-            x1 = pad_to_match(upsample2x_bilinear_align_corners(x1), x2)
-            x = torch.cat([x2, x1], dim=-1)
+            x = torch.cat([x2, up_to_match(x1, x2)], dim=-1)
         y = self.Conv_0(x)
         if not self.fold_bn:
             y = self.BatchNorm_0(y)

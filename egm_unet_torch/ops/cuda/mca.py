@@ -22,7 +22,10 @@ and ``mca_smem_bytes`` repeat the kernel's tile walk, shuffle gather and
 shared-memory layout for the host-side tests.
 
 ``mca_fused`` launches the kernel for CUDA tensors and runs ``mca_plain``
-for CPU tensors.
+for CPU tensors.  ``mca_plain`` is also the training graph's enhancement,
+and runs on a map split by rows over a spatial group (``parallel/halo.py``)
+too: the row above and below of ``x_out`` and of its squared deviations
+come from the neighbouring ranks.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
                                             check_no_autograd,
                                             check_same_device, stream_handle)
 from egm_unet_torch.ops.shuffle import channel_shuffle
+from egm_unet_torch.parallel.halo import halo, image_rows
+from egm_unet_torch.parallel.mesh import spatial
 
 launches = 0  # kernel launches since the last reset
 
@@ -80,11 +85,25 @@ def mca_plain(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor,
             + g_c.float()[:, None, None, :]) / 3.0
     xo = (x.float() * gsum).to(x.dtype).float()  # NHWC
     xc = xo.permute(0, 3, 1, 2)
-    mx = F.max_pool2d(F.pad(xc, (1, 1, 1, 1), value=float("-inf")), 3, 1)
-    mn = -F.max_pool2d(F.pad(-xc, (1, 1, 1, 1), value=float("-inf")), 3, 1)
-    mean = _sum9(F.pad(xc, (1, 1, 1, 1)), h, w) / 9.0
-    d2 = (xc - mean) ** 2
-    var = _sum9(F.pad(d2, (1, 1, 1, 1)), h, w) / 9.0
+    sp = spatial()
+    if sp is None:
+        mx = F.max_pool2d(F.pad(xc, (1, 1, 1, 1), value=float("-inf")), 3, 1)
+        mn = -F.max_pool2d(F.pad(-xc, (1, 1, 1, 1), value=float("-inf")), 3, 1)
+        mean = _sum9(F.pad(xc, (1, 1, 1, 1)), h, w) / 9.0
+        d2 = (xc - mean) ** 2
+        var = _sum9(F.pad(d2, (1, 1, 1, 1)), h, w) / 9.0
+    else:  # this rank's rows; the rows around them from its neighbours
+        xe = halo(xc, 1, axis=2)  # zero outside the image
+        lo, hi = sp.rows
+        inside = image_rows(lo - 1, hi + 1, sp.height, x.device)[None, None, :, None]
+        inf = torch.tensor(float("inf"), device=x.device)
+        mx = F.max_pool2d(F.pad(torch.where(inside, xe, -inf), (1, 1, 0, 0),
+                                value=float("-inf")), 3, 1)
+        mn = -F.max_pool2d(F.pad(torch.where(inside, -xe, -inf), (1, 1, 0, 0),
+                                 value=float("-inf")), 3, 1)
+        mean = _sum9(F.pad(xe, (1, 1, 0, 0)), h, w) / 9.0
+        d2 = (xc - mean) ** 2
+        var = _sum9(F.pad(halo(d2, 1, axis=2), (1, 1, 0, 0)), h, w) / 9.0
     shuf = channel_shuffle(xo, groups).permute(0, 3, 1, 2)
     out = (0.4 * xc + 0.2 * (mx - mn) + 0.2 * var + 0.1 * (1.1 * xc)
            + 0.1 * shuf)

@@ -17,6 +17,9 @@ intermediate rounded to the working dtype after the first pass as the JAX
 - ``resize_nearest`` has the two index conventions the reference mixes:
   ``'torch'`` = ``floor(i * n_in / n_out)`` and ``'pil'`` =
   ``floor((i + 0.5) * n_in / n_out)``.
+- ``upsample2x_rows``: the decoder's upsample of a map split by rows over a
+  spatial group (``parallel.use_spatial_group``), each rank's output rows
+  from the rows of the global matrix.
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ import functools
 
 import numpy as np
 import torch
+
+from egm_unet_torch.parallel.halo import fetch_rows
+from egm_unet_torch.parallel.mesh import Spatial, spatial
 
 
 @functools.lru_cache(maxsize=256)
@@ -168,6 +174,43 @@ def resize_nearest(x: torch.Tensor, out_hw, mode: str = "torch") -> torch.Tensor
         idx = torch.from_numpy(_nearest_index(x.shape[axis], n_out, mode))
         x = x.index_select(axis, idx.to(x.device))
     return x
+
+
+def upsample2x_rows(x: torch.Tensor, height_in: int, height_out: int,
+                    top: int = 0) -> torch.Tensor:
+    """``upsample2x_bilinear_align_corners`` (the matmul route) of a map
+    split by rows over the spatial group, whose global height is
+    ``height_in``, placed ``top`` rows down a map of ``height_out`` rows
+    (zero elsewhere, as ``pad_to_match`` pads): this rank's rows
+    ``row_range(height_out)`` of it.  Each output row is a row of the global
+    matrix ``_linear_matrix(height_in, 2 * height_in)``, not of a matrix of
+    this rank's slab, and reads the source rows that row's taps name,
+    fetched from the ranks that hold them; the products are rounded and
+    summed as ``_apply_separable`` does."""
+    sp = spatial()
+    h2 = 2 * height_in
+    lo_tap, hi_tap, _, _ = linear_taps(height_in, h2, True)
+    spans, asks = [], ([], [])
+    for a, b in sp.ranges(height_out):
+        u0, u1 = max(a - top, 0), min(b - top, h2)
+        spans.append((a, b, u0, u1))
+        s0 = int(lo_tap[u0]) if u1 > u0 else 0
+        asks[0].append(s0)
+        asks[1].append(int(hi_tap[u1 - 1]) + 1 if u1 > u0 else s0)
+    src = fetch_rows(x, *asks, fill=0.0, scope=Spatial(sp.group, height_in))
+    a, b, u0, u1 = spans[sp.group.rank]
+    bsz, _, w_in, c = x.shape
+    dtype = x.dtype
+    out = x.new_zeros((bsz, b - a, 2 * w_in, c))
+    if u1 > u0:
+        s0 = asks[0][sp.group.rank]
+        ah = _matrix_on(False, height_in, h2, True, dtype, x.device)[
+            u0:u1, s0:s0 + src.shape[1]]
+        aw = _matrix_on(False, w_in, 2 * w_in, True, dtype, x.device)
+        y = torch.einsum("ph,bhwc->bpwc", ah, src.float()).to(dtype).float()
+        y = torch.einsum("qw,bpwc->bpqc", aw, y).to(dtype)
+        out = torch.cat([out[:, :u0 + top - a], y, out[:, u1 + top - a:]], dim=1)
+    return out
 
 
 UPSAMPLE_IMPLS = ("matmul", "fused")

@@ -5,6 +5,10 @@ reference's edge-aware training losses (``losses.py``).
 - ``LAPLACE4``: 4-neighbour Laplacian of ``laplace_loss``.
 - ``LAPLACE8``: 8-neighbour Laplacian of ``lap_loss``.
 - ``SOBEL_X`` / ``SOBEL_Y``: Sobel responses of ``sobel_loss``.
+
+Under a spatial group (``parallel.use_spatial_group``) the input is this
+rank's rows, and the row above and below come from the neighbouring ranks
+(zero outside the image).
 """
 
 from __future__ import annotations
@@ -13,6 +17,9 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from egm_unet_torch.parallel.halo import halo
+from egm_unet_torch.parallel.mesh import spatial
 
 LAPLACE4 = ((0.0, 1.0, 0.0), (1.0, -4.0, 1.0), (0.0, 1.0, 0.0))
 LAPLACE8 = ((-1.0, -1.0, -1.0), (-1.0, 8.0, -1.0), (-1.0, -1.0, -1.0))
@@ -41,5 +48,8 @@ def stencil2d(x: torch.Tensor, kernel) -> torch.Tensor:
         x = x[None]
     elif x.ndim != 3:
         raise ValueError(f"stencil2d expects 2-D to 4-D input, got {tuple(shape)}")
-    y = F.conv2d(x.float()[:, None], _weight(kernel, x.device), padding=1)[:, 0]
+    x, pad = x.float(), (1, 1)
+    if spatial() is not None:
+        x, pad = halo(x, 1), (0, 1)
+    y = F.conv2d(x[:, None], _weight(kernel, x.device), padding=pad)[:, 0]
     return y.reshape(shape)

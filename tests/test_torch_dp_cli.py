@@ -7,8 +7,10 @@ and one checkpoint, written by rank 0, and the epoch loss of ``--mesh-data
 1`` within 1e-5 relative.  ``cli/train_longclip.py`` for three steps: the
 first step's loss within 1e-5 relative of one process's (with 4 rows a rank
 the PCA-32 proxy keeps every direction, so the two agree), every loss
-finite, one checkpoint.  The refusals: ``--device-cache`` with a mesh,
-``--mesh-spatial``, more ranks than GPUs, a batch the ranks cannot split.
+finite, one checkpoint.  The refusals: ``--device-cache`` with a mesh, a
+crop too small for ``--mesh-spatial``'s ranks (32 px leaves 2 rows at the
+fifth stage, fewer than 4 ranks), more ranks than GPUs, a batch the ranks
+cannot split.
 Two spawns of 2 ranks (about 20 s)."""
 
 import os
@@ -48,7 +50,7 @@ def test_train_cli_two_ranks_match_one(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,message", [
     (["--mesh-data", "2", "--device-cache"], "single-device"),
-    (["--mesh-spatial", "2"], "item 11"),
+    (["--mesh-spatial", "4"], "stage 4"),
     (["--mesh-data", "3"], "divisible"),
     (["--mesh-data", "2", "--grad-accum", "4"], "divisible"),
 ])

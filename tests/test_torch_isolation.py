@@ -71,9 +71,11 @@ def test_text_branch_modules_are_scanned():
 
 
 def test_parallel_modules_are_scanned():
-    """The data-parallel package is among the scanned sources."""
+    """The parallel package (data, spatial and tensor parallelism) is among
+    the scanned sources."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
-    for mod in ("parallel/__init__.py", "parallel/mesh.py"):
+    for mod in ("parallel/__init__.py", "parallel/mesh.py", "parallel/halo.py",
+                "parallel/tp.py"):
         assert f"egm_unet_torch/{mod}" in names, mod
 
 

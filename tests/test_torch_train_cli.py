@@ -133,12 +133,13 @@ def test_predict_cli_serves_the_folded_checkpoint(trained, tmp_path):
                                        (["--device-cache"], "item 6"),
                                        (["--mesh-data", "2", "--device-cache"],
                                         "single-device"),
-                                       (["--mesh-spatial", "2"], "item 11")])
+                                       (["--mesh-spatial", "2", "--device-cache"],
+                                        "single-device")])
 def test_unported_flags_exit_non_zero(flag, item):
-    """--mesh-spatial (spatial parallelism, ROADMAP item 11) exits non-zero
-    naming its item; --mesh-data (item 9, ported: tests/test_torch_dp_cli.py)
-    exits beside --device-cache, which is single-device.  The GPU-resident
-    dataset's flags (item 6) are ported: accepted, and refused only beside
+    """--mesh-data (item 9, ported: tests/test_torch_dp_cli.py) and
+    --mesh-spatial (item 11, ported: tests/test_torch_sp_cli.py) exit beside
+    --device-cache, which is single-device.  The GPU-resident dataset's
+    flags (item 6) are ported: accepted, and refused only beside
     --steps-per-dispatch > 1."""
     if item == "item 6":
         train_cli.refuse_unported(train_cli.parse_args(ARGS + flag))

@@ -1,6 +1,8 @@
-"""Rank functions of the data-parallel tests (``tests/test_torch_dp*.py``).
+"""Rank functions of the data-, spatial- and tensor-parallel tests
+(``tests/test_torch_dp*.py``, ``tests/test_torch_sp_*.py``,
+``tests/test_torch_tp.py``).
 
-Each runs on one rank of a 2-rank gloo group started by
+Each runs on one rank of a 2-rank gloo group (or a 1 x 2 grid) started by
 ``egm_unet_torch.parallel.launch`` and returns numpy arrays for the test
 process to compare.  This module imports no JAX: the ranks are spawned
 processes that import it afresh, and the JAX references are computed in
@@ -20,8 +22,12 @@ from egm_unet_torch.engine.longclip_train import make_longclip_loss_fn
 from egm_unet_torch.models import create_model
 from egm_unet_torch.models.clip.model import CLIP, CLIPConfig
 from egm_unet_torch.nn.layers import BatchNorm
-from egm_unet_torch.parallel import (all_reduce_grads, shard_batch, shard_superbatch,
-                                     use_data_group)
+from egm_unet_torch.ops.conv import conv2d
+from egm_unet_torch.ops.pooling import avg_pool2d, max_pool2d, min_pool2d
+from egm_unet_torch.parallel import (all_reduce_grads, fetch_rows, gather_clip_state,
+                                     row_range, shard_batch, shard_batch_spatial,
+                                     shard_clip, shard_superbatch, use_data_group,
+                                     use_spatial_group)
 
 # egm_unet at base_c 8 (tests/torch_train_util.py), no warm-up, base rate 5e-4
 BASE_C = 8
@@ -83,10 +89,10 @@ def bn_loss_eval(group, bn_case, loss_case, eval_case) -> dict:
     return out
 
 
-def train_state(name: str, state_dict: dict, remat=False):
+def train_state(name: str, state_dict: dict, remat=False, sched=None):
     model = create_model(name, base_c=BASE_C, fold_bn=False, remat=remat)
     model.load_state_dict(state_dict)
-    return create_train_state(model, warmup_poly_schedule(**SCHED))
+    return create_train_state(model, warmup_poly_schedule(**(sched or SCHED)))
 
 
 def run_steps(state, step, data, group, accum: int = 1) -> dict:
@@ -145,3 +151,102 @@ def longclip_grads(group, cfg_kw: dict, state_dict: dict, batch: tuple) -> dict:
     return {"loss": float(total),
             "grads": {k: (p.grad / group.world).numpy()
                       for k, p in model.named_parameters() if p.requires_grad}}
+
+
+# ------------------------------------------------------------------ spatial
+
+def sp_cases(grid, fwd_cases: list, step_cases: list, fetch_cases: list,
+             pools: np.ndarray, conv_cases: list) -> dict:
+    """The spatial tests' work on one rank of a 1 x 2 grid (data x
+    spatial): each ``fwd_cases`` entry (name, state_dict, images) the eval
+    forward of this rank's rows; each ``step_cases`` entry (name,
+    state_dict, images, targets, accum, remat, sched) one train step (its
+    loss and state); each ``fetch_cases`` entry (x, a, b, fill, w) ``fetch_rows``'s
+    output on this rank and the gradient of ``sum(out * w[rank])`` with
+    respect to its rows; ``pools`` the MCA pools of this rank's rows; each
+    ``conv_cases`` entry (x, w, padding, dilation, g) the row-split
+    ``conv2d``'s rows and the gradients of ``sum(out * g rows)`` with
+    respect to this rank's rows of x and to w."""
+    _setup()
+    sp, world = grid.inner, grid.world
+    out = {"fwd": [], "step": [], "fetch": []}
+    for name, state_dict, images in fwd_cases:
+        model = create_model(name, base_c=BASE_C, fold_bn=False)
+        model.load_state_dict(state_dict)
+        x = shard_batch_spatial(grid, torch.from_numpy(images))
+        before = sp.collectives
+        with torch.no_grad(), use_data_group(world), use_spatial_group(sp, images.shape[1]):
+            y = model.eval()(x)["out"]
+        out["fwd"].append({"logits": y.numpy(), "collectives": sp.collectives - before})
+    for name, state_dict, images, targets, accum, remat, sched in step_cases:
+        state = train_state(name, state_dict, remat, sched)
+        kw = dict(group=world, spatial=sp)
+        step = make_train_step_accum(accum, **kw) if accum > 1 else make_train_step(**kw)
+        x, t = shard_batch_spatial(grid, torch.from_numpy(images),
+                                   torch.from_numpy(targets), accum=accum)
+        before = sp.collectives, world.collectives
+        state, aux = step(state, x, t)
+        out["step"].append({"loss": float(aux["loss"]),
+                            "state": _numpy(state.model.state_dict()),
+                            "halo_collectives": sp.collectives - before[0],
+                            "reduce_collectives": world.collectives - before[1]})
+    for x, a, b, fill, w in fetch_cases:
+        lo, hi = row_range(x.shape[1], sp.rank, sp.world)
+        xl = torch.from_numpy(x[:, lo:hi]).requires_grad_(True)
+        with use_spatial_group(sp, x.shape[1]):
+            y = fetch_rows(xl, a, b, fill)
+        (y * torch.from_numpy(w[sp.rank])).sum().backward()
+        out["fetch"].append({"out": y.detach().numpy(), "grad": xl.grad.numpy()})
+    out["conv"] = []
+    for x, w, padding, dilation, g in conv_cases:
+        lo, hi = row_range(x.shape[1], sp.rank, sp.world)
+        xl = torch.from_numpy(x[:, lo:hi]).requires_grad_(True)
+        wt = torch.from_numpy(w).requires_grad_(True)
+        with use_spatial_group(sp, x.shape[1]):
+            y = conv2d(xl, wt, padding=padding, dilation=dilation)
+        (y * torch.from_numpy(g[:, lo:hi])).sum().backward()
+        out["conv"].append({"out": y.detach().numpy(), "gx": xl.grad.numpy(),
+                            "gw": wt.grad.numpy()})
+    xp = shard_batch_spatial(grid, torch.from_numpy(pools))
+    with torch.no_grad(), use_spatial_group(sp, pools.shape[1]):
+        out["pools"] = [(max_pool2d(xp, 3, 1, 1) - min_pool2d(xp, 3, 1, 1)).numpy(),
+                        avg_pool2d(xp, 3, 1, 1).numpy()]
+    return out
+
+
+# ------------------------------------------------------------------ tensor
+
+def tp_cases(grid, enc: tuple, longclip: tuple) -> dict:
+    """The tensor-parallel tests' work on one rank of a 1 x 2 grid (data x
+    model): ``enc`` (config kwargs, full state_dict, image, text) the
+    sharded towers' ``encode_image`` / ``encode_text``; ``longclip``
+    (config kwargs, state_dict, (image, long, short)) the Long-CLIP loss
+    over the data group and the full gradients ``gather_clip_state``
+    reassembles."""
+    _setup()
+    kw, state_dict, image, text = enc
+    model = CLIP(CLIPConfig(**kw))
+    model.load_state_dict(state_dict)
+    shard_clip(model, grid.inner)
+    with torch.no_grad():
+        out = {"image": model.encode_image(torch.from_numpy(image)).numpy(),
+               "text": model.encode_text(torch.from_numpy(text).long()).numpy(),
+               "heads": [m.heads for m in model.modules() if hasattr(m, "heads")]}
+    kw, state_dict, batch = longclip
+    model = CLIP(CLIPConfig(**kw))
+    model.load_state_dict(state_dict)
+    shard_clip(model, grid.inner)
+    out["long_heads"] = [m.heads for m in model.modules() if hasattr(m, "heads")]
+    image, tl, ts = shard_batch(grid.data, *(torch.from_numpy(a) for a in batch))
+    loss = make_longclip_loss_fn(group=grid.data)(model, image, tl.long(), ts.long())
+    loss.backward()
+    params = [p for p in model.parameters() if p.requires_grad]
+    total = all_reduce_grads(params, grid.data, loss.detach())[0] / grid.data.world
+    for p in params:
+        p.grad.div_(grid.data.world)
+    grads = gather_clip_state(model, grid.inner, grads=True)
+    out["loss"] = float(total)
+    out["grads"] = {k: v.numpy() for k, v in grads.items() if v is not None}
+    out["state"] = {k: v.numpy() for k, v in gather_clip_state(model, grid.inner).items()}
+    out["model_collectives"] = grid.inner.collectives
+    return out

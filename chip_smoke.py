@@ -55,7 +55,7 @@ shapes the main paths give it, and drives the main paths at full width:
   routes with each route's launch counts, the egm_unet one in float32 on the
   card against the CPU, ``cli/predict.py`` on it scored by
   ``cli/evaluating_indicator.py`` on the card (confusion matrix equal to one
-  counted here), one forward under ``utils/profiling.py``'s ``StepTimer`` and
+  counted here), one forward under ``utils/profiling.py``'s ``span`` and
   ``trace`` (``convert_serve``); the CLIP file read back into the fusion
   phase's CLIPSeg, its logits bit-equal to the direct load (``convert_clip``);
   ``VITDensePredT`` at ViT-B/16 384 (``vitseg``), the ``nn/extra.py``
@@ -177,7 +177,7 @@ from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_of
 from egm_unet_torch.utils.checkpoint import (best_epoch, folded_state_dict, load_payload,
                                              saved_epochs)
 from egm_unet_torch.utils.convert import load_clip_checkpoint, load_converted_clip
-from egm_unet_torch.utils.profiling import StepTimer, device_synchronized, trace
+from egm_unet_torch.utils.profiling import device_synchronized, span, table, trace
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -3128,7 +3128,8 @@ def phase_convert_serve(dev, conv: dict) -> dict:
     ``card_vs_cpu``'s bounds); ``cli/predict.py`` on it writing PNGs, which
     ``cli/evaluating_indicator.py`` scores on the card against synthetic
     ground truth, its confusion matrix equal to one counted here; one forward
-    timed under ``utils.profiling``'s ``StepTimer`` and ``trace``."""
+    timed under ``utils.profiling``'s ``trace`` as a ``span``, read back from
+    the span table."""
     raws = [synthetic_tp_sample(300 + i)[0] for i in range(BATCH)]
     launches, per_model = per_forward(), {}
     for name in CONVERT_MODELS:
@@ -3216,21 +3217,24 @@ def phase_convert_serve(dev, conv: dict) -> dict:
     check(np.array_equal(csv_hist, ref), f"confusion CSV {csv_hist.tolist()} != {ref.tolist()}")
     check(int(ref.sum()) == N_EVAL_IMAGES * 565 * 752, f"confusion total {int(ref.sum())}")
 
-    # one forward under StepTimer and trace
+    # one forward as a span under trace
     pred = converted_predictor(directory, "egm_unet", "gemm", "matmul", "bfloat16", "cuda")
     x = bucket_batch(pred, raws)
     pred.forward(x)
-    timer = StepTimer()
     trace_dir = OUT_DIR / "convert_serve_trace"
     with trace(str(trace_dir)):
-        with timer.phase("forward"):
+        with span("convert_serve.forward"):
             pred.forward(x)
             device_synchronized("cuda")
     text = (trace_dir / "trace.json").read_text()
     symbols = {"mca_fused": "mca_tile_kernel", "conv3x3_gemm": "conv3x3_mma_kernel",
-               "up_concat_conv": "upconv_mma_kernel"}
+               "up_concat_conv": "upconv_mma_kernel", "span": "convert_serve.forward"}
     missing = [k for k, sym in symbols.items() if sym not in text]
-    check(not missing, f"trace.json names no launch of {missing}")
+    check(not missing, f"trace.json names no {missing}")
+    spans = table()
+    check(spans.get("convert_serve.forward", {}).get("count") == 1
+          and json.loads((trace_dir / "spans.json").read_text()) == spans,
+          f"span table {spans}")
     del pred
     rec = {"phase": "convert_serve", "models": list(CONVERT_MODELS), "base_c": BASE_C,
            "convert_s": conv["seconds"], "convert_log": conv["logs"],
@@ -3238,7 +3242,7 @@ def phase_convert_serve(dev, conv: dict) -> dict:
            "eval_confmat": ref.tolist(), "eval_s": eval_s,
            "eval_miou": float(np.mean(np.diag(ref) / np.maximum(
                ref.sum(0) + ref.sum(1) - np.diag(ref), 1))),
-           "step_timer_ms": timer.totals["forward"] * 1e3,
+           "forward_span_ms": spans["convert_serve.forward"]["seconds"] * 1e3,
            "trace_bytes": len(text), "card": dev["nvidia_smi"]}
     emit(rec)
     return rec

@@ -12,11 +12,22 @@ Pipeline per validation image:
 Runs in float32 on the current CUDA device unless ``--device cpu`` is given.  The two
 branches and the fused prediction are functions (``preprocess``,
 ``run_branches``, ``fused_masks``) that ``predict_clipseg`` shares.
+
+Their stages are spans and counters of ``utils/profiling.py`` (recorded only
+under a profiler or ``profiling.recording()``): ``fusion`` (one
+``fused_masks`` call) over ``fusion.preprocess``, ``fusion.clip.pack``,
+``fusion.clip.forward``, ``fusion.unet.pack``, ``fusion.unet.forward``,
+``fusion.fuse`` and, inside it, ``fusion.readback`` (one per mask); counters
+``fusion.images`` and ``fusion.h2d_bytes`` (every host array sent to the
+device).  ``--trace-dir DIR`` runs the preprocessing and the branch passes
+under ``profiling.trace(DIR)`` (``DIR/trace.json``, ``DIR/spans.json``) and
+prints the stage table per image.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import List, Sequence
@@ -36,6 +47,7 @@ from egm_unet_torch.models.clip.tokenizer import tokenize
 from egm_unet_torch.models.clipseg import CLIPDensePredT
 from egm_unet_torch.models.registry import init_weights
 from egm_unet_torch.ops.resize import resize_bilinear, resize_nearest
+from egm_unet_torch.utils import profiling
 from egm_unet_torch.utils.convert import (clipseg_decoder_from_torch,
                                           load_clip_checkpoint, merge_params)
 
@@ -61,6 +73,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="small random CLIP tower (smoke runs; no checkpoints)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; fails without a GPU) or 'cpu'")
+    p.add_argument("--trace-dir", default=None,
+                   help="profile the fusion into DIR (trace.json, spans.json) "
+                        "and print its stage table per image")
 
 
 def parse_args(argv=None):
@@ -75,6 +90,26 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host array on ``device``; its bytes counted as ``fusion.h2d_bytes``."""
+    profiling.count("fusion.h2d_bytes", a.nbytes)
+    return torch.from_numpy(a).to(device, dtype)
+
+
+def stage_table(tab: dict, n_images: int) -> str:
+    """``profiling.table()`` per image: each span's milliseconds and self
+    milliseconds and its calls, each counter's value."""
+    lines = [f"# stage table per image ({n_images} images): ms, self ms, calls"]
+    for name in sorted(tab):
+        rec = tab[name]
+        if "seconds" in rec:
+            lines.append(f"{name:<22} {rec['seconds'] / n_images * 1e3:10.3f} "
+                         f"{rec['self_seconds'] / n_images * 1e3:10.3f} {rec['count']:6d}")
+        else:
+            lines.append(f"{name:<22} {rec['value'] / n_images:21.1f}")
+    return "\n".join(lines)
+
+
 def run_in_chunks(forward, inputs: Sequence[np.ndarray], batch_size: int,
                   device) -> torch.Tensor:
     """Run [N, ...] host arrays through ``forward`` in fixed-size chunks; the
@@ -87,7 +122,7 @@ def run_in_chunks(forward, inputs: Sequence[np.ndarray], batch_size: int,
         if pad:
             chunk = [np.concatenate(
                 [c, np.zeros((pad,) + c.shape[1:], c.dtype)]) for c in chunk]
-        out = forward(*[torch.from_numpy(c).to(device) for c in chunk])
+        out = forward(*[to_device(c, device) for c in chunk])
         outs.append(out[: batch_size - pad] if pad else out)
     return torch.cat(outs, dim=0)
 
@@ -159,12 +194,13 @@ def preprocess(raws: Sequence[np.ndarray], base_size: int, clip_size: int):
 
     tf = EvalTransform(base_size)
     img565s, img352s = [], []
-    for raw in raws:
-        img565s.append(tf(raw, None)[0])
-        img352s.append(normalize(
-            np.asarray(Image.fromarray(raw).resize((clip_size, clip_size),
-                                                   Image.BILINEAR)),
-            IMAGENET_MEAN, IMAGENET_STD))
+    with profiling.span("fusion.preprocess"):
+        for raw in raws:
+            img565s.append(tf(raw, None)[0])
+            img352s.append(normalize(
+                np.asarray(Image.fromarray(raw).resize((clip_size, clip_size),
+                                                       Image.BILINEAR)),
+                IMAGENET_MEAN, IMAGENET_STD))
     return img565s, img352s
 
 
@@ -187,24 +223,29 @@ def run_branches(clipseg, unet, cond: torch.Tensor, img565s, img352s, *,
 
     # CLIPSeg: image-major repeat over the prompts, ceil(N * P / clip_batch)
     # forwards
-    rep = np.repeat(np.stack(img352s), n_prompts, axis=0)
-    conds = np.tile(cond.float().cpu().numpy(), (n, 1))
-    cl_flat = run_in_chunks(clipseg_forward, (rep, conds), clip_batch, device)
+    with profiling.span("fusion.clip.pack"):
+        rep = np.repeat(np.stack(img352s), n_prompts, axis=0)
+        conds = np.tile(cond.float().cpu().numpy(), (n, 1))
+    with profiling.span("fusion.clip.forward"):
+        cl_flat = run_in_chunks(clipseg_forward, (rep, conds), clip_batch, device)
     cl = cl_flat[..., 0].reshape(n, n_prompts, size, size).permute(0, 2, 3, 1)
 
     # UNet: 64-px shape buckets x fixed batches whose free slots hold zeros
     ul: List[torch.Tensor] = [None] * n  # type: ignore[list-item]
     buckets = {}
-    for i, im in enumerate(img565s):
-        buckets.setdefault(bucket_pad(im).shape[:2], []).append(i)
+    with profiling.span("fusion.unet.pack"):
+        for i, im in enumerate(img565s):
+            buckets.setdefault(bucket_pad(im).shape[:2], []).append(i)
     for (bh, bw), idxs in buckets.items():
         for s in range(0, len(idxs), unet_batch):
             chunk = idxs[s:s + unet_batch]
-            batch = np.zeros((unet_batch, bh, bw, 3), np.float32)
-            for row, i in enumerate(chunk):
-                im = img565s[i]
-                batch[row, :im.shape[0], :im.shape[1]] = im
-            out = unet(torch.from_numpy(batch).to(device, unet_dtype))["out"]
+            with profiling.span("fusion.unet.pack"):
+                batch = np.zeros((unet_batch, bh, bw, 3), np.float32)
+                for row, i in enumerate(chunk):
+                    im = img565s[i]
+                    batch[row, :im.shape[0], :im.shape[1]] = im
+            with profiling.span("fusion.unet.forward"):
+                out = unet(to_device(batch, device, unet_dtype))["out"]
             forwards["unet_forwards"] += 1
             for row, i in enumerate(chunk):
                 h, w = img565s[i].shape[:2]
@@ -226,17 +267,22 @@ def fused_masks(clipseg, unet, cond: torch.Tensor, raws: Sequence[np.ndarray],
     ``unet_batch`` -> CLIPSeg logits bilinearly resized to the UNet grid ->
     ``clip + alpha * unet`` -> argmax -> nearest (PIL convention) resize to
     the raw size.  Returns uint8 masks with values 0 and 255."""
-    img565s, img352s = preprocess(raws, base_size, clip_size)
-    cl_all, ul = run_branches(clipseg, unet, cond, img565s, img352s,
-                              clip_batch=clip_batch, unet_batch=unet_batch,
-                              device=device, info=info)
-    masks = []
-    for i, raw in enumerate(raws):
-        rh, rw = img565s[i].shape[:2]
-        cl = resize_bilinear(cl_all[i][None], (rh, rw))
-        pred = fuse_logits(cl, ul[i][None], alpha).argmax(dim=-1)
-        pred = resize_nearest(pred[0], raw.shape[:2], mode="pil")
-        masks.append((pred * 255).to(torch.uint8).cpu().numpy())
+    with profiling.span("fusion"):
+        profiling.count("fusion.images", len(raws))
+        img565s, img352s = preprocess(raws, base_size, clip_size)
+        cl_all, ul = run_branches(clipseg, unet, cond, img565s, img352s,
+                                  clip_batch=clip_batch, unet_batch=unet_batch,
+                                  device=device, info=info)
+        masks = []
+        with profiling.span("fusion.fuse"):
+            for i, raw in enumerate(raws):
+                rh, rw = img565s[i].shape[:2]
+                cl = resize_bilinear(cl_all[i][None], (rh, rw))
+                pred = fuse_logits(cl, ul[i][None], alpha).argmax(dim=-1)
+                pred = resize_nearest(pred[0], raw.shape[:2], mode="pil")
+                mask = (pred * 255).to(torch.uint8)
+                with profiling.span("fusion.readback"):
+                    masks.append(mask.cpu().numpy())
     return masks
 
 
@@ -257,18 +303,21 @@ def main(argv=None):
         raw, target = ds[i]
         raws.append(raw)
         targets.append(target.astype(np.int32))
-    img565s, img352s = preprocess(raws, args.base_size, args.clip_size)
+    with (profiling.trace(args.trace_dir) if args.trace_dir else contextlib.nullcontext()):
+        img565s, img352s = preprocess(raws, args.base_size, args.clip_size)
 
-    for pnum in range(max(1, args.timed_passes)):
-        t0 = time.perf_counter()
-        cl_all, ul_list = run_branches(
-            clipseg, unet, cond, img565s, img352s, clip_batch=args.clip_batch,
-            unet_batch=args.unet_batch, device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
-        print(f"# branch pass {pnum + 1}: {n / max(dt, 1e-9):.2f} img/s "
-              f"({dt:.2f}s for {n} images x {len(args.prompts)} prompts)", flush=True)
+        for pnum in range(max(1, args.timed_passes)):
+            t0 = time.perf_counter()
+            cl_all, ul_list = run_branches(
+                clipseg, unet, cond, img565s, img352s, clip_batch=args.clip_batch,
+                unet_batch=args.unet_batch, device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
+            print(f"# branch pass {pnum + 1}: {n / max(dt, 1e-9):.2f} img/s "
+                  f"({dt:.2f}s for {n} images x {len(args.prompts)} prompts)", flush=True)
+    if args.trace_dir:
+        print(stage_table(profiling.table(), n))
 
     # per (resized shape, label shape) group: CLIPSeg logits bilinearly to
     # the UNet grid, then both branches NEAREST to the label size (a gather,

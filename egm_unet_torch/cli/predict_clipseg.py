@@ -5,19 +5,26 @@ same two-branch pipeline as ``eval_clipseg``, but alpha is loaded from
 
 The default prompt pair holds a long descriptive tactile-paving prompt, the
 payload of Long-CLIP's 248-token context.  Runs on the current CUDA device
-unless ``--device cpu`` is given."""
+unless ``--device cpu`` is given.
+
+``--trace-dir DIR`` runs ``fused_masks`` under ``profiling.trace(DIR)``
+(``DIR/trace.json``, the profiler's timeline with the fusion's stage spans;
+``DIR/spans.json``, the span table) and prints the stage table per image
+(``eval_clipseg``'s docstring names the spans)."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 from egm_unet_torch.cli.eval_clipseg import (add_common_args, build_clipseg,
                                              build_unet, fused_masks,
-                                             prompt_conditionals)
+                                             prompt_conditionals, stage_table)
 from egm_unet_torch.data import DriveDataset, SyntheticTPDataset
 from egm_unet_torch.device import resolve_device
 from egm_unet_torch.engine.fusion import load_alpha
+from egm_unet_torch.utils import profiling
 
 DEFAULT_PROMPTS = [
     "background",
@@ -55,9 +62,12 @@ def main(argv=None):
           else DriveDataset(args.data_path, None, args.txt_name))
     os.makedirs(args.save_result, exist_ok=True)
     raws = [ds[i][0] for i in range(len(ds))]
-    masks = fused_masks(clipseg, unet, cond, raws, alpha, base_size=args.base_size,
-                        clip_size=args.clip_size, clip_batch=args.clip_batch,
-                        unet_batch=args.unet_batch, device=device)
+    with (profiling.trace(args.trace_dir) if args.trace_dir else contextlib.nullcontext()):
+        masks = fused_masks(clipseg, unet, cond, raws, alpha, base_size=args.base_size,
+                            clip_size=args.clip_size, clip_batch=args.clip_batch,
+                            unet_batch=args.unet_batch, device=device)
+    if args.trace_dir:
+        print(stage_table(profiling.table(), len(raws)))
     for name, mask in zip(ds.names, masks):
         Image.fromarray(mask).convert("L").save(
             os.path.join(args.save_result, f"{name}.png"))

@@ -1,10 +1,9 @@
 """egm_unet_torch's offline tools against egm_unet_tpu's on the same inputs:
 the evaluator's confusion counts and formulas, its PNG round trip and CLI,
-the dataset audit, the VOC palette, mask PNGs, the mean/std tool; the
-profiling helpers on the CPU; the tools' refusal of a missing GPU."""
+the dataset audit, the VOC palette, mask PNGs, the mean/std tool; the tools' refusal of a missing GPU (the profiling helpers are
+``test_torch_tracing.py``'s)."""
 
 import csv
-import json
 import os
 import sys
 
@@ -20,7 +19,6 @@ from egm_unet_tpu.utils import colormap as j_colormap
 
 from egm_unet_torch.cli import compute_mean_std, dataset_audit, evaluating_indicator
 from egm_unet_torch.utils import colormap
-from egm_unet_torch.utils.profiling import StepTimer, device_synchronized, trace
 
 
 def write_png(path, arr):
@@ -182,19 +180,3 @@ def test_compute_mean_std_close(tmp_path, with_masks):
     got = compute_mean_std.compute_mean_std(str(img_dir), md, device="cpu")
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g, r, rtol=0, atol=1e-6)
-
-
-def test_step_timer_and_trace_on_cpu(tmp_path):
-    timer = StepTimer()
-    x = torch.randn(64, 64)
-    with trace(str(tmp_path / "tr")) as prof:
-        for _ in range(2):
-            with timer.phase("step"):
-                torch.mm(x, x)
-    assert prof is not None
-    assert timer.counts["step"] == 2 and timer.fps("step") > 0
-    assert "step:" in timer.summary() and timer.fps("missing") == 0.0
-    events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
-    assert any("aten::mm" in str(e.get("name")) for e in events)
-    a = device_synchronized("cpu")
-    assert device_synchronized() >= a

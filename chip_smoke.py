@@ -76,7 +76,15 @@ shapes the main paths give it, and drives the main paths at full width:
 It then checks the card against the CPU on small inputs, for the UNets on
 every route and for a small CLIPSeg, for one training step, for one step of
 each text trainer and K6's backward (``text_train_card_vs_cpu``) and for a
-small RN CLIP; and that K1..K5 refuse to run inside an autograd graph.
+small RN CLIP; and that K1..K5 and K7 refuse to run inside an autograd graph.
+
+K7 ``mca_gates`` (the MCALayer's three gate vectors, which replaces no TPU
+kernel) is held to 2e-6 absolute on the gates and 1e-5 relative on each
+mean and standard deviation (relative to the mean of |x| for the mean),
+against its plain version on the same card, at the serving sites and, in
+``gates``, at the four sites' shapes at batch 32, batch 1, ragged H and W,
+C = 32 and both variants in both dtypes; every call launched twice must give
+the same gates bit for bit, and so must an image alone and in a batch.
 
 ``conv3x3_gemm``, ``conv3x3_pair_gemm``, ``up_concat_conv`` and
 ``csa_attention`` have two hand-written kernels each, chosen by dtype:
@@ -165,9 +173,9 @@ from egm_unet_torch.models.clipseg import CLIPDensePredT
 from egm_unet_torch.models.registry import init_weights
 from egm_unet_torch.models.vitseg import VITDensePredT
 from egm_unet_torch.nn import extra
-from egm_unet_torch.nn.attention import MCALayer
+from egm_unet_torch.nn.attention import MCALayer, mca_kernel_size
 from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU, DoubleConv, cast_weights
-from egm_unet_torch.ops.cuda import (build, conv3x3, csa, launch_counts, mca,
+from egm_unet_torch.ops.cuda import (build, conv3x3, csa, gates, launch_counts, mca,
                                      reset_launch_counts, resize2x, upconv)
 from egm_unet_torch.ops.quant import QUANT_MODES, SHIP_QSTORE_SITES
 from egm_unet_torch.parallel import (all_reduce_grads, gather_clip_state, launch,
@@ -186,12 +194,14 @@ BATCH = 8
 BASE_C = 32
 SEED = 0
 SOURCES = {"mca_fused": "egm_unet_torch/csrc/mca_fused.cu",
+           "mca_gates": "egm_unet_torch/csrc/mca_gates.cu",
            "conv3x3_gemm": "egm_unet_torch/csrc/conv3x3.cu",
            "conv3x3_pair_gemm": "egm_unet_torch/csrc/conv3x3_pair.cu",
            "upsample2x_fused": "egm_unet_torch/csrc/upsample2x.cu",
            "up_concat_conv": "egm_unet_torch/csrc/up_concat_conv.cu",
            "csa_attention": "egm_unet_torch/csrc/csa_attention.cu"}
 REPLACES = {"mca_fused": "egm_unet_tpu/ops/pallas/mca.py:133",
+            "mca_gates": "none; the JAX package computes the gates in plain jnp",
             "conv3x3_gemm": "egm_unet_tpu/ops/pallas/conv3x3.py:306",
             "conv3x3_pair_gemm": "egm_unet_tpu/ops/pallas/conv3x3.py:234",
             "upsample2x_fused": "egm_unet_tpu/ops/pallas/resize2x.py:191",
@@ -207,17 +217,21 @@ def per_forward(**launches) -> dict:
 # kernel launches of one EGM-UNet forward on the default route, of one on the
 # pair / fused-upsample route (the stem and the four decoder DoubleConvs are
 # one pair launch each, which takes the stem's two and the decoders' four
-# second convs from conv3x3_gemm), and of one CLIPSeg forward
-PER_FORWARD = per_forward(mca_fused=4, conv3x3_gemm=18, up_concat_conv=4)
-PER_FORWARD_PAIR = per_forward(mca_fused=4, conv3x3_gemm=12, conv3x3_pair_gemm=5,
-                               upsample2x_fused=4)
+# second convs from conv3x3_gemm), and of one CLIPSeg forward; every folded
+# route computes each MCALayer's gates with one mca_gates call
+PER_FORWARD = per_forward(mca_fused=4, mca_gates=4, conv3x3_gemm=18, up_concat_conv=4)
+PER_FORWARD_PAIR = per_forward(mca_fused=4, mca_gates=4, conv3x3_gemm=12,
+                               conv3x3_pair_gemm=5,                               upsample2x_fused=4)
 PER_CLIPSEG_FORWARD = per_forward(csa_attention=10)  # blocks 0..9; 10, 11 not needed
 # int8 serving on the default route with the shipping storage sites: int8df
 # keeps K2 and K5 and gives up K1 (its xout site is active); int8 runs every
-# conv as int8_conv and keeps K1; int8full neither
-PER_FORWARD_QUANT = {"int8df": per_forward(conv3x3_gemm=18, up_concat_conv=4),
-                     "int8": per_forward(mca_fused=4),
-                     "int8full": per_forward()}
+# conv as int8_conv and keeps K1; int8full neither; all three keep K7
+PER_FORWARD_QUANT = {"int8df": per_forward(mca_gates=4, conv3x3_gemm=18, up_concat_conv=4),
+                     "int8": per_forward(mca_fused=4, mca_gates=4),
+                     "int8full": per_forward(mca_gates=4)}
+# int8 calibration: one full-precision forward whose MCALayers take the
+# unfused route after their gates
+PER_CALIBRATION = per_forward(mca_gates=4)
 # the fusion path, the defaults of cli/predict_clipseg.py
 CLIP_SIZE, CLIP_BATCH, UNET_BATCH, BASE_SIZE, ALPHA = 352, 32, 16, 565, 0.5
 N_FUSION_IMAGES = 16
@@ -276,6 +290,9 @@ PATH_VARIANTS = {"mca_fused": {"bfloat16": "tile_tma", "float32": "tile_tma"},
 for _name in ("conv3x3_gemm", "conv3x3_pair_gemm", "up_concat_conv"):
     PATH_VARIANTS[_name] = {"bfloat16": "mma_bf16", "float32": "cuda_cores_f32"}
 PATH_VARIANTS["csa_attention"] = {"bfloat16": "mma_bf16", "float32": "ffma_f32"}
+PATH_VARIANTS["mca_gates"] = {"bfloat16": "vec16", "float32": "vec16"}
+GATE_TOL = 2e-6  # K7's gates, absolute (float32 sums in another order)
+GATE_STAT_TOL = 1e-5  # K7's means and standard deviations, relative
 
 
 def device_time_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -444,7 +461,55 @@ def site_calls(site, dtype=None) -> list:
     cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype).contiguous())
     if isinstance(mod, DoubleConv):
         return pair_site_calls(mod, args, kwargs, cast)
+    if isinstance(mod, MCALayer):
+        return [site_call(site, cast), gate_call(cast(args[0].contiguous()), layer_params(mod))]
     return [site_call(site, cast)]
+
+
+def layer_params(mod) -> list:
+    """The (weight, conv) pairs of an MCALayer's H, W and C gates."""
+    return [(g.weight, g.conv) for g in (mod.h_cw, mod.w_hc, mod.c_hw)]
+
+
+def gate_checks(x, params) -> dict:
+    """K7 against its plain version on the same card: the gates (absolute),
+    each axis's mean and standard deviation (relative; the mean's relative
+    to the mean of |x| over the same axes, which bounds a float32 sum's
+    error), and two launches' gates bit for bit.  Fails the run past a
+    tolerance; returns the worst errors over their tolerances."""
+    got, stats = gates.mca_gates(x, params, stats=True)
+    again = gates.mca_gates(x, params)
+    torch.cuda.synchronize()
+    ref = gates.mca_gates_plain(x, params)
+    gate_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    stat_err = 0.0
+    for axis, (avg, std) in zip((1, 2, 3), stats):
+        r_avg, r_std = gates.gate_stats_plain(x, axis)
+        scale = gates.gate_stats_plain(x.abs(), axis)[0]
+        stat_err = max(stat_err, ((avg - r_avg).abs() / scale.clamp_min(1e-30)).max().item(),
+                       ((std - r_std).abs() / r_std.abs().clamp_min(1e-30)).max().item())
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(all(bool(torch.isfinite(g).all()) for g in got), "mca_gates: gates not finite")
+    check(gate_err <= GATE_TOL, f"mca_gates {tuple(x.shape)} {x.dtype}: gate err {gate_err}")
+    check(stat_err <= GATE_STAT_TOL,
+          f"mca_gates {tuple(x.shape)} {x.dtype}: mean/std relative err {stat_err}")
+    check(same, f"mca_gates {tuple(x.shape)} {x.dtype}: two launches differ")
+    return {"gate_err_over_tol": gate_err / GATE_TOL,
+            "stat_err_over_tol": stat_err / GATE_STAT_TOL, "repeat_bitwise": same}
+
+
+def gate_call(x, params):
+    """The K7 call of an MCALayer site, in the form ``kernel_record`` takes:
+    bytes one read of x and the three gates written (the two passes read it
+    twice), about 11 flops an element."""
+    gb, gh, gw = x.shape[0], x.shape[1], x.shape[2]
+    out_bytes = 4 * gb * (gh + gw + x.shape[3])
+    return ("mca_gates", ("gates", tuple(x.shape), str(x.dtype)),
+            lambda: gates.mca_gates(x, params), lambda: gates.mca_gates_plain(x, params),
+            None, nbytes(x) + out_bytes, 11.0 * x.numel(), x.dtype,
+            {"variant": gates.mca_gates_variant(x.dtype, x.shape[-1], aligned16(x)),
+             "two_read_bound_ms": (2 * nbytes(x) + out_bytes) / PEAK_BYTES * 1e3,
+             **gate_checks(x, params)})
 
 
 def site_call(site, cast):
@@ -541,6 +606,10 @@ def compare(kernel_fn, plain_fn, dtype) -> tuple:
     got = kernel_fn()
     torch.cuda.synchronize()
     ref = plain_fn()
+    if isinstance(got, tuple):  # K7's float32 gates: absolute
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        check(all(bool(torch.isfinite(a).all()) for a in got), "kernel output is not finite")
+        return err, GATE_TOL, max(b.abs().max().item() for b in ref)
     err = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     check(bool(torch.isfinite(got).all()), "kernel output is not finite")
@@ -781,6 +850,87 @@ def phase_edges() -> None:
           "variants": variants})
 
 
+# K7's inputs in the EGM-UNet forward at the serving bucket, per image
+GATE_PATH = [(288, 384, 64), (144, 192, 128), (72, 96, 256), (36, 48, 256)]
+
+
+def gate_params(c: int, dtype, gen) -> list:
+    """Seeded (weight, conv) pairs of the H, W and C gates at C channels, as
+    ``init_reference`` draws them, on the card in ``dtype``."""
+    out = []
+    for k in (3, 3, mca_kernel_size(c)):
+        w = torch.rand(2, generator=gen)
+        conv = (torch.rand(k, generator=gen) * 2 - 1) / math.sqrt(k)
+        out.append((w.to("cuda", dtype), conv.to("cuda", dtype)))
+    return out
+
+
+def phase_gates() -> dict:
+    """K7 against its plain version (``gate_checks``) at the four sites'
+    shapes at batch 32 and batch 1, in both dtypes, timed at batch 32 beside
+    the plain composite it replaces (the port's route before K7); then small
+    and odd shapes: ragged H and W, H = 1, W = 1, C = 32, 24 (two lanes'
+    worth of 8), 96, 512 and 2048 (lanes spanning 2 and 8 warps) on the
+    16-byte variant, C = 3, 20 and 300 and x off the 16-byte grid on the
+    scalar one, signed data, float32 maps with bfloat16 parameters."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rnd = lambda *shape: torch.randn(*shape, generator=cuda_gen, device="cuda")
+    timed, worst, variants, n_cases = [], {}, {}, 0
+
+    def case(x, params, time_it=False):
+        nonlocal n_cases
+        r = gate_checks(x, params)
+        key = str(x.dtype).split(".")[1]
+        v = gates.mca_gates_variant(x.dtype, x.shape[-1], aligned16(x))
+        variants[f"{key}/{v}"] = variants.get(f"{key}/{v}", 0) + 1
+        worst[key] = max(worst.get(key, 0.0), r["gate_err_over_tol"], r["stat_err_over_tol"])
+        n_cases += 1
+        if x.shape[0] > 8:  # an image's gates are the same bits in any batch
+            full = gates.mca_gates(x, params)
+            for lo, hi in ((5, 8), (11, 12)):
+                part = gates.mca_gates(x[lo:hi], params)
+                check(all(torch.equal(a, f[lo:hi]) for a, f in zip(part, full)),
+                      f"mca_gates {tuple(x.shape)} {x.dtype}: images {lo}..{hi - 1} alone "
+                      "differ from the same images in the batch")
+            r["batch_invariant"] = True
+        if time_it:
+            nb = nbytes(x) + 4 * x.shape[0] * sum(x.shape[1:])
+            timed.append({"shape": list(x.shape), "dtype": key, "variant": v, **r,
+                          "device_ms": device_time_ms(lambda: gates.mca_gates(x, params)),
+                          "plain_device_ms": device_time_ms(
+                              lambda: gates.mca_gates_plain(x, params), reps=5),
+                          "bound_ms": nb / PEAK_BYTES * 1e3,
+                          "two_read_bound_ms": (nb + nbytes(x)) / PEAK_BYTES * 1e3})
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, w, c in GATE_PATH:
+            for b in (32, 1):
+                case(rnd(b, h, w, c).relu().to(dtype), gate_params(c, dtype, gen),
+                     time_it=b == 32)
+            torch.cuda.empty_cache()
+        for b, h, w, c in ((2, 7, 13, 64), (3, 1, 5, 32), (1, 5, 1, 32), (2, 37, 29, 32),
+                           (2, 9, 11, 24), (1, 6, 7, 96), (2, 5, 9, 512), (1, 3, 4, 2048),
+                           (2, 7, 9, 3), (1, 11, 6, 20), (1, 4, 5, 300)):
+            case(rnd(b, h, w, c).relu().to(dtype), gate_params(c, dtype, gen))
+        x = rnd(2 * 9 * 11 * 64 + 1).relu().to(dtype)[1:].view(2, 9, 11, 64)  # off the grid
+        case(x, gate_params(64, dtype, gen))
+        case(rnd(2, 17, 19, 64).to(dtype), gate_params(64, dtype, gen))  # signed
+    case(rnd(2, 36, 48, 256).relu(), gate_params(256, torch.bfloat16, gen))  # mixed
+    for dt in ("bfloat16", "float32"):
+        for v in ("vec16", "scalar"):
+            check(variants.get(f"{dt}/{v}", 0) >= 3, f"gates cases of {dt} {v}: {variants}")
+    per_batch = {dt: sum(r["device_ms"] for r in timed if r["dtype"] == dt)
+                 for dt in ("bfloat16", "float32")}
+    rec = {"phase": "gates", "cases": n_cases, "worst_err_over_tol": worst,
+           "variants": variants, "batch32": timed, "device_ms_per_batch32": per_batch,
+           "plain_device_ms_per_batch32": {
+               dt: sum(r["plain_device_ms"] for r in timed if r["dtype"] == dt)
+               for dt in ("bfloat16", "float32")}}
+    emit(rec)
+    return rec
+
+
 def phase_serving(pred, dev) -> dict:
     sizes = [(565, 752), (565, 752), (480, 640), (600, 500)]
     images = [synthetic_tp_sample(i, h, w)[0] for i, (h, w) in enumerate(sizes)]
@@ -821,7 +971,8 @@ def phase_serving(pred, dev) -> dict:
     phase_profile("profile", lambda: pred.forward(x), "serving_profile.txt",
                   {"conv3x3_gemm": "conv3x3_mma_kernel",
                    "up_concat_conv": "upconv_mma_kernel",
-                   "mca_fused": "mca_tile_kernel"})
+                   "mca_fused": "mca_tile_kernel",
+                   "mca_gates": "mca_gate_"})  # three launches a call
     return rec
 
 
@@ -1176,10 +1327,10 @@ def phase_card_vs_cpu() -> None:
     for xx in (x, x_odd):
         cases += [
             ("egm_unet", BASE_C, "pair", "matmul", xx, per_forward(
-                mca_fused=4, conv3x3_gemm=12, conv3x3_pair_gemm=5)),
+                mca_fused=4, mca_gates=4, conv3x3_gemm=12, conv3x3_pair_gemm=5)),
             # K2 for both decoder convs, where the default route has K5
             ("egm_unet", BASE_C, "gemm", "fused", xx, per_forward(
-                mca_fused=4, conv3x3_gemm=22, upsample2x_fused=4)),
+                mca_fused=4, mca_gates=4, conv3x3_gemm=22, upsample2x_fused=4)),
             ("egm_unet", BASE_C, "pair", "fused", xx, PER_FORWARD_PAIR),
             ("unet", 64, "pair", "fused", xx, per_forward(
                 conv3x3_pair_gemm=9, upsample2x_fused=4))]
@@ -1197,7 +1348,8 @@ def phase_card_vs_cpu() -> None:
                                     f"launches {launches} != {want}")
         else:  # no MCA; the GRFB blocks hold no plain 3x3 conv of their own
             check(launches["conv3x3_gemm"] >= 14 and launches["up_concat_conv"] == 4
-                  and launches["mca_fused"] == 0, f"grfb_unet launches {launches}")
+                  and launches["mca_fused"] == launches["mca_gates"] == 0,
+                  f"grfb_unet launches {launches}")
         card_vs_cpu_record(name, list(xx.shape), gpu, cpu, launches, masks=True,
                            base_c=base_c, route=[conv_impl, up_impl])
 
@@ -1487,14 +1639,16 @@ def phase_train_card_vs_cpu() -> None:
 
 
 def phase_guard() -> None:
-    """On the card each of K1..K5 raises, and launches nothing, when asked to
-    run inside an autograd graph."""
+    """On the card each of K1..K5 and K7 raises, and launches nothing, when
+    asked to run inside an autograd graph."""
     gen = torch.Generator().manual_seed(SEED)
     t = lambda *s: torch.randn(*s, generator=gen).cuda()
     x, x1 = t(2, 16, 16, 32), t(2, 8, 8, 32)
     calls = {
         "mca_fused": lambda g: mca.mca_fused(x.requires_grad_(g), t(2, 16).sigmoid(),
                                              t(2, 16).sigmoid(), t(2, 32).sigmoid()),
+        "mca_gates": lambda g: gates.mca_gates(
+            x, [(t(2).requires_grad_(g), t(3)), (t(2), t(3)), (t(2), t(3))]),
         "conv3x3_gemm": lambda g: conv3x3.conv3x3_gemm(x, t(3, 3, 32, 32).requires_grad_(g),
                                                        t(32)),
         "conv3x3_pair_gemm": lambda g: conv3x3.conv3x3_pair_gemm(
@@ -1744,9 +1898,10 @@ def phase_quant(dev, trained) -> dict:
             reset_launch_counts()
             masks = pred.forward(x)  # calibrates on x, then one forward
             torch.cuda.synchronize()
-            launches = launch_counts()
+            launches = {k: v - PER_CALIBRATION[k] for k, v in launch_counts().items()}
             check(launches == PER_FORWARD_QUANT[mode],
-                  f"{mode} launches {launches} != {PER_FORWARD_QUANT[mode]}")
+                  f"{mode} launches {launches} != {PER_FORWARD_QUANT[mode]} "
+                  f"(calibration's {PER_CALIBRATION} taken off)")
             total = {k: v + launches[k] for k, v in total.items()}
             with pred.quantizer.active():
                 logits = pred.model(x)["out"]
@@ -1781,7 +1936,7 @@ def phase_quant(dev, trained) -> dict:
 def phase_serve_quant(dev) -> dict:
     """``cli/serve.py --quant int8df --init-random`` on 127.0.0.1: a burst of
     4 PNG requests from 4 client threads, every one answered; the launches
-    of the forwards it ran (the calibration launches none)."""
+    of the forwards it ran and of the calibration forward before them."""
     args = serve_cli.parse_args([
         "--init-random", "--model", "egm_unet", "--base-c", str(BASE_C),
         "--num-classes", "1", "--batch-size", str(BATCH), "--dtype", "bfloat16",
@@ -1828,9 +1983,9 @@ def phase_serve_quant(dev) -> dict:
     for img, mask in zip(images, masks):
         check(mask.shape == img.shape[:2] and set(np.unique(mask)) <= {0, 255},
               f"int8df reply {mask.shape} for request {img.shape}")
-    # one calibration forward (no kernel), then the serving forwards
+    # one calibration forward, then the serving forwards
     n_fwd = len(forwards) - 1
-    expect = {k: v * n_fwd for k, v in PER_FORWARD_QUANT["int8df"].items()}
+    expect = {k: v * n_fwd + PER_CALIBRATION[k] for k, v in PER_FORWARD_QUANT["int8df"].items()}
     check(n_fwd >= 1 and launches == expect,
           f"int8df serve launches {launches} != {expect} for {n_fwd} forwards")
     check(pred.quantizer.mode == "int8df" and pred.quantizer.sites == SHIP_QSTORE_SITES,
@@ -3140,7 +3295,7 @@ def phase_convert_serve(dev, conv: dict) -> dict:
             pred = converted_predictor(directory, name, conv_impl, up_impl, "bfloat16", "cuda")
             want = dict(PER_FORWARD if conv_impl == "gemm" else PER_FORWARD_PAIR)
             if name != "egm_unet":  # the yuan layout has no MCALayer
-                want["mca_fused"] = 0
+                want["mca_fused"] = want["mca_gates"] = 0
             pred.predict(raws[:1])  # first call: the bucket's cuDNN plans
             torch.cuda.synchronize()
             reset_launch_counts()
@@ -3481,6 +3636,7 @@ def main() -> None:
         images = [synthetic_tp_sample(i)[0] for i in range(BATCH)]
         records = phase_kernels(pred, batcher.predictor, images)
         phase_edges()
+        phase_gates()
         main_paths = {"serving": phase_serving(pred, dev)["launches"],
                       "fusion": phase_fusion(pred.model, dev)["launches"],
                       "clipseg_f32": phase_clipseg_f32(dev),

@@ -1,18 +1,19 @@
 """Attention modules of the EGM-UNet family, NHWC (port of
 ``egm_unet_tpu/nn/attention.py``).
 
-The MCALayer's three gate vectors are small reductions and stay plain
-PyTorch; everything after them is one ``mca_fused`` launch in the inference
-graph, and the plain, differentiable ``mca_plain`` in the training graph.
+In the inference graph the MCALayer's three gate vectors are one
+``mca_gates`` call (kernel K7 on the card) and everything after them one
+``mca_fused`` launch; the training graph takes the plain, differentiable
+``mca_gates_plain`` (each ``MCAGate``) and ``mca_plain``.
 While calibrating int8 scales, or where its ``xout`` storage site is active
 (``ops/quant.py``), the layer takes the JAX package's unfused route instead:
 the three gated tensors averaged into ``x_out``, its storage site, then the
 enhancement in plain tensor ops.
 
 Under a spatial group (``parallel/halo.py``) each rank holds rows of the
-map: the MCA gates' reductions over H and ChannelAttention's pools sum (and
-take the maximum) over the group, the H gate's 1-D conv and every window op
-fetch their halos.
+map: the MCA gates take the plain route, whose reductions over H, like
+ChannelAttention's pools, sum (and take the maximum) over the group; the H
+gate's 1-D conv and every window op fetch their halos.
 """
 
 from __future__ import annotations
@@ -24,11 +25,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from egm_unet_torch.nn.layers import Conv, uniform_
+from egm_unet_torch.ops.cuda.gates import gate_plain, mca_gates
 from egm_unet_torch.ops.cuda.mca import mca_fused, mca_plain
 from egm_unet_torch.ops.pooling import avg_pool2d, max_pool2d, min_pool2d
 from egm_unet_torch.ops.quant import current_quant_mode, qstore, site_active
 from egm_unet_torch.ops.shuffle import channel_shuffle
-from egm_unet_torch.parallel.halo import halo, spatial_max, spatial_sum
+from egm_unet_torch.parallel.halo import spatial_max, spatial_sum
 from egm_unet_torch.parallel.mesh import spatial
 
 
@@ -58,39 +60,16 @@ class MCAGate(nn.Module):
         uniform_(self.conv, 1.0, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        reduce_axes = tuple(a for a in (1, 2, 3) if a != self.axis)
-        sp = spatial()
-        split = sp is not None and self.axis != 1  # a reduction over H
-        n = 1
-        for a in reduce_axes:
-            n *= sp.height if split and a == 1 else x.shape[a]
-        xf = x.float()
-        keep = [x.shape[0], 1, 1, 1]
-        keep[self.axis] = x.shape[self.axis]
-        if split:
-            avg = spatial_sum(xf.sum(dim=reduce_axes)) / n
-            var = spatial_sum(((xf - avg.reshape(keep)) ** 2).sum(dim=reduce_axes)) / n
-        else:
-            avg = xf.mean(dim=reduce_axes)
-            var = ((xf - avg.reshape(keep)) ** 2).mean(dim=reduce_axes)
-        std = (var * (n / max(n - 1, 1))).sqrt()
-        sw = torch.sigmoid(self.weight)
-        blended = 0.5 * (avg + std) + sw[0] * avg + sw[1] * std
-        k = self.conv.shape[0]
-        pad = (k - 1) // 2
-        if sp is not None and self.axis == 1:
-            blended, pad = halo(blended, pad), 0
-        return torch.sigmoid(F.conv1d(blended[:, None, :],
-                                      self.conv.float()[None, None, :],
-                                      padding=pad)[:, 0, :]).contiguous()
+        return gate_plain(x, self.axis, self.weight, self.conv)
 
 
 class MCALayer(nn.Module):
     """Enhanced multi-dimension coordinate attention (module "C"): the three
-    gates, then the enhancement (``ops/cuda/mca.py``): the fused kernel
-    (``fused=True``, the inference graph) or its plain composite, which
-    autograd differentiates (``fused=False``, the training graph, on every
-    device)."""
+    gates, then the enhancement (``ops/cuda/mca.py``).  ``fused=True`` (the
+    inference graph): the gates by ``mca_gates`` (K7 on the card) and the
+    fused enhancement kernel; ``fused=False`` (the training graph, on every
+    device) or a spatial group: each ``MCAGate`` and the plain composite,
+    which autograd differentiates."""
 
     def __init__(self, channels: int, fused: bool = True):
         super().__init__()
@@ -101,7 +80,11 @@ class MCALayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
-        gates = self.h_cw(x), self.w_hc(x), self.c_hw(x)
+        if self.fused and spatial() is None:
+            gates = mca_gates(x, [(g.weight, g.conv) for g in
+                                  (self.h_cw, self.w_hc, self.c_hw)])
+        else:
+            gates = self.h_cw(x), self.w_hc(x), self.c_hw(x)
         if self.fused and (current_quant_mode() == "calibrate"
                            or site_active(self, "xout")):
             return qstore(self, mca_unfused(self, x, *gates), "out")

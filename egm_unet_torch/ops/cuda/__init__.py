@@ -9,11 +9,12 @@ PyTorch version.
 | up_concat_conv    | ``upconv.up_concat_conv``     | ``ops/pallas/upconv.py::up_concat_conv``     |
 | upsample2x_fused  | ``resize2x.upsample2x_fused`` | ``ops/pallas/resize2x.py::upsample2x_fused`` |
 | csa_attention     | ``csa.csa_attention``         | ``ops/pallas/csa.py::csa_attention``         |
+| mca_gates         | ``gates.mca_gates``           | none (the gates are plain jnp there)         |
 
 Each wrapper keeps a plain count of its kernel's launches in its module.
 """
 
-from egm_unet_torch.ops.cuda import conv3x3, csa, mca, resize2x, upconv
+from egm_unet_torch.ops.cuda import conv3x3, csa, gates, mca, resize2x, upconv
 
 # kernel -> (module, name of its launch counter there)
 KERNEL_COUNTERS = {"conv3x3_gemm": (conv3x3, "launches"),
@@ -21,7 +22,8 @@ KERNEL_COUNTERS = {"conv3x3_gemm": (conv3x3, "launches"),
                    "mca_fused": (mca, "launches"),
                    "up_concat_conv": (upconv, "launches"),
                    "upsample2x_fused": (resize2x, "launches"),
-                   "csa_attention": (csa, "launches")}
+                   "csa_attention": (csa, "launches"),
+                   "mca_gates": (gates, "launches")}
 
 
 def launch_counts() -> dict:

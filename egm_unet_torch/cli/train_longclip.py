@@ -10,6 +10,10 @@ learnt, so the loss falls); real use reads ``--data-tsv`` (image path, long
 caption, short caption).  Runs on the current CUDA device unless ``--device
 cpu`` is given; with no GPU it refuses to start.
 
+Without a checkpoint file the tower is ``--clip-config``'s preset
+(``vit_b16`` by default, or ``longclip_l14``: Long-CLIP-L) with seeded
+random weights.
+
 ``--mesh-data N`` fine-tunes data-parallel on N ranks (default: every
 visible GPU; 1 on the CPU), N GPUs under NCCL or, with ``--device cpu``, N
 processes under gloo: every rank draws the same global batch of
@@ -29,6 +33,7 @@ import torch
 
 from egm_unet_torch.engine.longclip_train import (create_longclip_state,
                                                   make_longclip_train_step)
+from egm_unet_torch.models.clip.model import PRESETS
 from egm_unet_torch.parallel import launch, replicated, shard_batch
 
 
@@ -57,6 +62,10 @@ def parse_args(argv=None):
                         "triples instead of fresh randoms each step — the "
                         "model can memorize the pairings, so the loss curve "
                         "demonstrably decreases")
+    p.add_argument("--clip-config", default="vit_b16", choices=tuple(PRESETS),
+                   help="the tower to fine-tune from random weights when "
+                        "--clip-weights names no file (a checkpoint's shapes win): "
+                        "Long-CLIP ViT-B/16 or Long-CLIP-L (ViT-L/14)")
     p.add_argument("--tiny-clip", action="store_true")
     p.add_argument("--mesh-data", default=None, type=int,
                    help="data-parallel ranks (default: every visible GPU; 1 "
@@ -95,7 +104,7 @@ def fine_tune(group, args) -> dict:
     """The run on one rank of ``group`` (None: one process)."""
     from egm_unet_torch.cli.eval_clipseg import tiny_clip_config
     from egm_unet_torch.device import resolve_device
-    from egm_unet_torch.models.clip.model import CLIP, VIT_B16, CLIPConfig
+    from egm_unet_torch.models.clip.model import CLIP, CLIPConfig
     from egm_unet_torch.models.registry import init_weights
     from egm_unet_torch.utils.checkpoint import CheckpointManager
 
@@ -119,8 +128,8 @@ def fine_tune(group, args) -> dict:
         cfg = CLIPConfig(**cfg_kw)
         say(f"loaded {args.clip_weights} (ctx {cfg.context_length})")
     else:
-        cfg = VIT_B16
-        say("WARNING: no checkpoint; fine-tuning a random tower")
+        cfg = PRESETS[args.clip_config]
+        say(f"WARNING: no checkpoint; fine-tuning a random {args.clip_config} tower")
 
     model = CLIP(cfg)
     if state_dict is None:

@@ -23,6 +23,14 @@ against every image, with targets offset by ``rank * b``; the loss is the
 mean of the ranks' losses, so the summed gradients are divided by the world
 size.
 
+Spans and counters (``utils/profiling``; recorded only under a profiler or
+``recording()``): ``longclip.step`` around a whole step, in it
+``longclip.encode_image``, ``longclip.encode_text`` (twice a step: long and
+short captions), ``longclip.loss`` (the PCA proxy and the cross-entropies),
+``longclip.backward`` and ``longclip.update`` (AdamW and the logit-scale
+clamp); the counters ``longclip.steps`` (one a step) and ``longclip.images``
+(this rank's rows a step).
+
 Data x tensor parallel (the JAX package's ``make_longclip_loss_fn(clip,
 mesh=get_mesh(n, m))``): the model is ``parallel.shard_clip``'s shard over a
 grid's model ranks, and ``group`` is the grid's data group (``Grid.data``,
@@ -44,6 +52,7 @@ import torch
 
 from egm_unet_torch.engine.state import TrainState
 from egm_unet_torch.parallel.mesh import DataGroup, all_gather, all_reduce_grads
+from egm_unet_torch.utils.profiling import count, span
 
 MAX_LOGIT_SCALE = math.log(100.0)  # upstream CLIP's post-step clamp
 FROZEN = ("positional_embedding",)
@@ -120,12 +129,16 @@ def make_longclip_loss_fn(ratio_short: float = 0.1, group: Optional[DataGroup] =
     its rows of the global batch)."""
 
     def loss_fn(model, image, text_long, text_short):
-        img = model.encode_image(image)
-        tl = model.encode_text(text_long)
-        ts = model.encode_text(text_short)
-        l_long, l_short = longclip_contrastive_loss(img, tl, ts, model.logit_scale,
-                                                    group=group)
-        return l_long + ratio_short * l_short
+        with span("longclip.encode_image"):
+            img = model.encode_image(image)
+        with span("longclip.encode_text"):
+            tl = model.encode_text(text_long)
+        with span("longclip.encode_text"):
+            ts = model.encode_text(text_short)
+        with span("longclip.loss"):
+            l_long, l_short = longclip_contrastive_loss(img, tl, ts, model.logit_scale,
+                                                        group=group)
+            return l_long + ratio_short * l_short
 
     return loss_fn
 
@@ -193,19 +206,24 @@ def make_longclip_train_step(ratio_short: float = 0.1,
 
     def step(state, image, text_long, text_short):
         model = state.model
-        state.optimizer.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss = loss_fn(model, image, text_long, text_short)
-            loss.backward()
-        loss = loss.detach()
-        if group is not None:
-            params = [p for g in state.optimizer.param_groups for p in g["params"]]
-            loss = all_reduce_grads(params, group, loss)[0] / group.world
-            for p in params:
-                p.grad.div_(group.world)
-        state.apply_gradients()
-        with torch.no_grad():
-            model.logit_scale.clamp_(max=MAX_LOGIT_SCALE)
+        with span("longclip.step"):
+            count("longclip.steps", 1)
+            count("longclip.images", image.shape[0])
+            state.optimizer.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                loss = loss_fn(model, image, text_long, text_short)
+                with span("longclip.backward"):
+                    loss.backward()
+            loss = loss.detach()
+            if group is not None:
+                params = [p for g in state.optimizer.param_groups for p in g["params"]]
+                loss = all_reduce_grads(params, group, loss)[0] / group.world
+                for p in params:
+                    p.grad.div_(group.world)
+            with span("longclip.update"):
+                state.apply_gradients()
+                with torch.no_grad():
+                    model.logit_scale.clamp_(max=MAX_LOGIT_SCALE)
         return state, {"loss": loss, "lr": state.lr_fn(state.step)}
 
     return step

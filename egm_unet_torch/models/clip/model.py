@@ -65,6 +65,14 @@ def is_resnet(cfg: CLIPConfig) -> bool:
 
 VIT_B16 = CLIPConfig()
 VIT_B32 = dataclasses.replace(VIT_B16, vision_patch_size=32)
+# Long-CLIP-L (Zhang et al., arXiv:2403.15378; checkpoint LongCLIP-L): ViT-L/14
+# at 224 px (24 blocks of width 1024, 16 heads of 64) and a text tower of 12
+# blocks of width 768 (12 heads) over 248 positions, embed_dim 768
+LONGCLIP_L14 = CLIPConfig(embed_dim=768, image_resolution=224, vision_layers=24,
+                          vision_width=1024, vision_patch_size=14, context_length=248,
+                          vocab_size=49408, transformer_width=768, transformer_heads=12,
+                          transformer_layers=12, long_clip=True)
+PRESETS = {"vit_b16": VIT_B16, "longclip_l14": LONGCLIP_L14}
 
 
 def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:

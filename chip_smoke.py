@@ -76,7 +76,8 @@ shapes the main paths give it, and drives the main paths at full width:
 It then checks the card against the CPU on small inputs, for the UNets on
 every route and for a small CLIPSeg, for one training step, for one step of
 each text trainer and K6's backward (``text_train_card_vs_cpu``) and for a
-small RN CLIP; and that K1..K5 and K7 refuse to run inside an autograd graph.
+small RN CLIP; and that K1..K5, K7 and K8 refuse to run inside an autograd
+graph.
 
 K7 ``mca_gates`` (the MCALayer's three gate vectors, which replaces no TPU
 kernel) is held to 2e-6 absolute on the gates and 1e-5 relative on each
@@ -85,6 +86,14 @@ against its plain version on the same card, at the serving sites and, in
 ``gates``, at the four sites' shapes at batch 32, batch 1, ragged H and W,
 C = 32 and both variants in both dtypes; every call launched twice must give
 the same gates bit for bit, and so must an image alone and in a batch.
+
+K8 ``eafe_edge`` (the EdgeAwareFeatureEnhancer's ``x - avg3x3(x)``, which
+replaces no TPU kernel) must equal its plain version, the composite ``x -
+avg_pool2d(x, 3, 1, 1)``, bit for bit on the same card: at the serving sites
+and, in ``eafe``, at the eight path shapes at batch 8 and 32 in both dtypes
+(two launches the same bits, an image alone and in a batch the same bits),
+and at small and odd shapes on both variants; timed at batch 32 beside the
+plain composite and the library's ``avg_pool2d`` and subtraction.
 
 ``conv3x3_gemm``, ``conv3x3_pair_gemm``, ``up_concat_conv`` and
 ``csa_attention`` have two hand-written kernels each, chosen by dtype:
@@ -174,8 +183,9 @@ from egm_unet_torch.models.registry import init_weights
 from egm_unet_torch.models.vitseg import VITDensePredT
 from egm_unet_torch.nn import extra
 from egm_unet_torch.nn.attention import MCALayer, mca_kernel_size
-from egm_unet_torch.nn.layers import BasicConv, ConvBNReLU, DoubleConv, cast_weights
-from egm_unet_torch.ops.cuda import (build, conv3x3, csa, gates, launch_counts, mca,
+from egm_unet_torch.nn.layers import (BasicConv, ConvBNReLU, DoubleConv,
+                                      EdgeAwareFeatureEnhancer, cast_weights)
+from egm_unet_torch.ops.cuda import (build, conv3x3, csa, edge, gates, launch_counts, mca,
                                      reset_launch_counts, resize2x, upconv)
 from egm_unet_torch.ops.quant import QUANT_MODES, SHIP_QSTORE_SITES
 from egm_unet_torch.parallel import (all_reduce_grads, gather_clip_state, launch,
@@ -195,6 +205,7 @@ BASE_C = 32
 SEED = 0
 SOURCES = {"mca_fused": "egm_unet_torch/csrc/mca_fused.cu",
            "mca_gates": "egm_unet_torch/csrc/mca_gates.cu",
+           "eafe_edge": "egm_unet_torch/csrc/eafe_edge.cu",
            "conv3x3_gemm": "egm_unet_torch/csrc/conv3x3.cu",
            "conv3x3_pair_gemm": "egm_unet_torch/csrc/conv3x3_pair.cu",
            "upsample2x_fused": "egm_unet_torch/csrc/upsample2x.cu",
@@ -202,6 +213,7 @@ SOURCES = {"mca_fused": "egm_unet_torch/csrc/mca_fused.cu",
            "csa_attention": "egm_unet_torch/csrc/csa_attention.cu"}
 REPLACES = {"mca_fused": "egm_unet_tpu/ops/pallas/mca.py:133",
             "mca_gates": "none; the JAX package computes the gates in plain jnp",
+            "eafe_edge": "none; the JAX package computes the EAFE's edge in plain jnp",
             "conv3x3_gemm": "egm_unet_tpu/ops/pallas/conv3x3.py:306",
             "conv3x3_pair_gemm": "egm_unet_tpu/ops/pallas/conv3x3.py:234",
             "upsample2x_fused": "egm_unet_tpu/ops/pallas/resize2x.py:191",
@@ -218,20 +230,24 @@ def per_forward(**launches) -> dict:
 # pair / fused-upsample route (the stem and the four decoder DoubleConvs are
 # one pair launch each, which takes the stem's two and the decoders' four
 # second convs from conv3x3_gemm), and of one CLIPSeg forward; every folded
-# route computes each MCALayer's gates with one mca_gates call
-PER_FORWARD = per_forward(mca_fused=4, mca_gates=4, conv3x3_gemm=18, up_concat_conv=4)
-PER_FORWARD_PAIR = per_forward(mca_fused=4, mca_gates=4, conv3x3_gemm=12,
-                               conv3x3_pair_gemm=5,                               upsample2x_fused=4)
+# route computes each MCALayer's gates with one mca_gates call and the edge of
+# each EGRFB's two EdgeAwareFeatureEnhancers with one eafe_edge call each
+PER_FORWARD = per_forward(mca_fused=4, mca_gates=4, eafe_edge=8, conv3x3_gemm=18,
+                          up_concat_conv=4)
+PER_FORWARD_PAIR = per_forward(mca_fused=4, mca_gates=4, eafe_edge=8, conv3x3_gemm=12,
+                               conv3x3_pair_gemm=5, upsample2x_fused=4)
 PER_CLIPSEG_FORWARD = per_forward(csa_attention=10)  # blocks 0..9; 10, 11 not needed
 # int8 serving on the default route with the shipping storage sites: int8df
 # keeps K2 and K5 and gives up K1 (its xout site is active); int8 runs every
-# conv as int8_conv and keeps K1; int8full neither; all three keep K7
-PER_FORWARD_QUANT = {"int8df": per_forward(mca_gates=4, conv3x3_gemm=18, up_concat_conv=4),
-                     "int8": per_forward(mca_fused=4, mca_gates=4),
-                     "int8full": per_forward(mca_gates=4)}
+# conv as int8_conv and keeps K1; int8full neither; all three keep K7 and K8
+# (the EAFE's edge is computed in the working dtype between storage sites)
+PER_FORWARD_QUANT = {"int8df": per_forward(mca_gates=4, eafe_edge=8, conv3x3_gemm=18,
+                                           up_concat_conv=4),
+                     "int8": per_forward(mca_fused=4, mca_gates=4, eafe_edge=8),
+                     "int8full": per_forward(mca_gates=4, eafe_edge=8)}
 # int8 calibration: one full-precision forward whose MCALayers take the
 # unfused route after their gates
-PER_CALIBRATION = per_forward(mca_gates=4)
+PER_CALIBRATION = per_forward(mca_gates=4, eafe_edge=8)
 # the fusion path, the defaults of cli/predict_clipseg.py
 CLIP_SIZE, CLIP_BATCH, UNET_BATCH, BASE_SIZE, ALPHA = 352, 32, 16, 565, 0.5
 N_FUSION_IMAGES = 16
@@ -291,6 +307,7 @@ for _name in ("conv3x3_gemm", "conv3x3_pair_gemm", "up_concat_conv"):
     PATH_VARIANTS[_name] = {"bfloat16": "mma_bf16", "float32": "cuda_cores_f32"}
 PATH_VARIANTS["csa_attention"] = {"bfloat16": "mma_bf16", "float32": "ffma_f32"}
 PATH_VARIANTS["mca_gates"] = {"bfloat16": "vec16", "float32": "vec16"}
+PATH_VARIANTS["eafe_edge"] = {"bfloat16": "vec16", "float32": "vec16"}
 GATE_TOL = 2e-6  # K7's gates, absolute (float32 sums in another order)
 GATE_STAT_TOL = 1e-5  # K7's means and standard deviations, relative
 
@@ -386,7 +403,8 @@ def bucket_batch(pred, images) -> torch.Tensor:
     return torch.from_numpy(batch).to("cuda", pred.dtype)
 
 
-def capture_sites(model, x, kinds=(ConvBNReLU, BasicConv, MCALayer)):
+def capture_sites(model, x, kinds=(ConvBNReLU, BasicConv, MCALayer,
+                                   EdgeAwareFeatureEnhancer)):
     """Run one forward and record every call of a module of ``kinds`` with
     its inputs."""
     sites, hooks = [], []
@@ -463,6 +481,8 @@ def site_calls(site, dtype=None) -> list:
         return pair_site_calls(mod, args, kwargs, cast)
     if isinstance(mod, MCALayer):
         return [site_call(site, cast), gate_call(cast(args[0].contiguous()), layer_params(mod))]
+    if isinstance(mod, EdgeAwareFeatureEnhancer):
+        return [edge_call(cast(args[0].contiguous()))]
     return [site_call(site, cast)]
 
 
@@ -510,6 +530,43 @@ def gate_call(x, params):
             {"variant": gates.mca_gates_variant(x.dtype, x.shape[-1], aligned16(x)),
              "two_read_bound_ms": (2 * nbytes(x) + out_bytes) / PEAK_BYTES * 1e3,
              **gate_checks(x, params)})
+
+
+def edge_checks(x) -> dict:
+    """K8 against its plain version on the same card, bit for bit, and two
+    launches the same bits; fails the run otherwise."""
+    got = edge.eafe_edge(x)
+    again = edge.eafe_edge(x)
+    torch.cuda.synchronize()
+    ref = edge.eafe_edge_plain(x)
+    same_plain, same_again = bits_equal(got, ref), bits_equal(got, again)
+    check(same_plain, f"eafe_edge {tuple(x.shape)} {x.dtype}: not the plain version's bits "
+                      f"(max abs err {(got.float() - ref.float()).abs().max().item()})")
+    check(same_again, f"eafe_edge {tuple(x.shape)} {x.dtype}: two launches differ")
+    return {"bitwise_plain": same_plain, "repeat_bitwise": same_again}
+
+
+def bits_equal(a, b) -> bool:
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def edge_library(x):
+    """The library's composite on the NCHW view of x: ``F.avg_pool2d`` and
+    the subtraction, two launches."""
+    xc = x.permute(0, 3, 1, 2)
+    return xc - F.avg_pool2d(xc, 3, 1, 1, count_include_pad=True)
+
+
+def edge_call(x):
+    """The K8 call of an EdgeAwareFeatureEnhancer site, in the form
+    ``kernel_record`` takes: one read of x and one write, about 20 flops an
+    element (nine adds, a division, a subtraction, two roundings)."""
+    return ("eafe_edge", ("eafe", tuple(x.shape), str(x.dtype)),
+            lambda: edge.eafe_edge(x), lambda: edge.eafe_edge_plain(x),
+            lambda: edge_library(x), 2 * nbytes(x), 20.0 * x.numel(), x.dtype,
+            {"variant": edge.eafe_edge_variant(x.dtype, x.shape[-1], aligned16(x)),
+             **edge_checks(x)})
 
 
 def site_call(site, cast):
@@ -931,6 +988,85 @@ def phase_gates() -> dict:
     return rec
 
 
+# K8's inputs in the EGM-UNet forward at the serving bucket, per image: each
+# EGRFB's edge_enhancer (C) and edge_eafe (C / 8)
+EDGE_PATH = [(288, 384, 64), (288, 384, 8), (144, 192, 128), (144, 192, 16),
+             (72, 96, 256), (72, 96, 32), (36, 48, 256), (36, 48, 32)]
+
+
+def phase_eafe() -> dict:
+    """K8 against its plain version, bit for bit (``edge_checks``), at the
+    eight path shapes at batch 8 and 32 in both dtypes on ReLU'd data (the
+    forward's, whose window sums are often zero), an image alone and in a
+    batch the same bits; timed at batch 32 (device ms, bound, the plain
+    composite, the library's ``avg_pool2d`` and subtraction); then signed
+    data at the largest path shape, small and odd shapes (ragged tiles and
+    bands, H = 1, W = 1, C = 24 and 2048 on the 16-byte variant, C = 3, 20
+    and x off the 16-byte grid on the scalar one) and special values (+-0,
+    +-inf, large magnitudes)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def rnd(*shape):
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        return x * torch.rand(*shape, generator=gen, device="cuda").mul(8).exp2()
+
+    timed, variants, n_cases = [], {}, 0
+
+    def case(x, time_it=False):
+        nonlocal n_cases
+        r = edge_checks(x)
+        key = str(x.dtype).split(".")[1]
+        v = edge.eafe_edge_variant(x.dtype, x.shape[-1], aligned16(x))
+        variants[f"{key}/{v}"] = variants.get(f"{key}/{v}", 0) + 1
+        n_cases += 1
+        if x.shape[0] > 1:  # an image's edge is the same bits in any batch
+            full = edge.eafe_edge(x)
+            for lo, hi in ((x.shape[0] // 2, x.shape[0] // 2 + 3), (x.shape[0] - 1, x.shape[0])):
+                part = edge.eafe_edge(x[lo:hi].contiguous())
+                check(bits_equal(part, full[lo:hi]),
+                      f"eafe_edge {tuple(x.shape)} {x.dtype}: images {lo}..{hi - 1} alone "
+                      "differ from the same images in the batch")
+        if time_it:
+            nb = 2 * nbytes(x)
+            timed.append({"shape": list(x.shape), "dtype": key, "variant": v, **r,
+                          "device_ms": device_time_ms(lambda: edge.eafe_edge(x)),
+                          "plain_device_ms": device_time_ms(lambda: edge.eafe_edge_plain(x)),
+                          "library_device_ms": device_time_ms(lambda: edge_library(x)),
+                          "bound_ms": nb / PEAK_BYTES * 1e3})
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, w, c in EDGE_PATH:  # after a ReLU, as the forward gives them
+            for b in (32, 8):
+                case(rnd(b, h, w, c).relu().to(dtype), time_it=b == 32)
+            torch.cuda.empty_cache()
+        case(rnd(8, 288, 384, 64).to(dtype))  # signed
+        for b, h, w, c in ((2, 7, 13, 64), (3, 1, 5, 32), (1, 5, 1, 32), (2, 37, 29, 256),
+                           (2, 9, 11, 24), (1, 6, 70, 64), (2, 5, 9, 2048), (2, 70, 9, 8),
+                           (2, 7, 9, 3), (1, 11, 6, 20), (1, 4, 5, 300)):
+            case(rnd(b, h, w, c).to(dtype))
+        x = rnd(2 * 9 * 11 * 64 + 1).to(dtype)[1:].view(2, 9, 11, 64)  # off the grid
+        case(x)
+        x = rnd(2, 17, 19, 64).to(dtype)
+        x[:, ::3, :, ::5] = 0.0
+        x[:, 1::4, :, 1::7] = -0.0
+        x[0, 5, 7, :8] = float("inf")
+        x[1, 9, 3, 8:16] = -float("inf")
+        x[1, 2, 2, :] = 3e38
+        case(x)
+    for dt in ("bfloat16", "float32"):
+        for v in ("vec16", "scalar"):
+            check(variants.get(f"{dt}/{v}", 0) >= 3, f"eafe cases of {dt} {v}: {variants}")
+    sums = lambda key: {dt: sum(r[key] for r in timed if r["dtype"] == dt)
+                        for dt in ("bfloat16", "float32")}
+    rec = {"phase": "eafe", "cases": n_cases, "variants": variants, "batch32": timed,
+           "device_ms_per_batch32": sums("device_ms"),
+           "bound_ms_per_batch32": sums("bound_ms"),
+           "plain_device_ms_per_batch32": sums("plain_device_ms"),
+           "library_device_ms_per_batch32": sums("library_device_ms")}
+    emit(rec)
+    return rec
+
+
 def phase_serving(pred, dev) -> dict:
     sizes = [(565, 752), (565, 752), (480, 640), (600, 500)]
     images = [synthetic_tp_sample(i, h, w)[0] for i, (h, w) in enumerate(sizes)]
@@ -972,7 +1108,8 @@ def phase_serving(pred, dev) -> dict:
                   {"conv3x3_gemm": "conv3x3_mma_kernel",
                    "up_concat_conv": "upconv_mma_kernel",
                    "mca_fused": "mca_tile_kernel",
-                   "mca_gates": "mca_gate_"})  # three launches a call
+                   "mca_gates": "mca_gate_",  # three launches a call
+                   "eafe_edge": "eafe_edge_kernel"})
     return rec
 
 
@@ -1327,10 +1464,12 @@ def phase_card_vs_cpu() -> None:
     for xx in (x, x_odd):
         cases += [
             ("egm_unet", BASE_C, "pair", "matmul", xx, per_forward(
-                mca_fused=4, mca_gates=4, conv3x3_gemm=12, conv3x3_pair_gemm=5)),
+                mca_fused=4, mca_gates=4, eafe_edge=8, conv3x3_gemm=12,
+                conv3x3_pair_gemm=5)),
             # K2 for both decoder convs, where the default route has K5
             ("egm_unet", BASE_C, "gemm", "fused", xx, per_forward(
-                mca_fused=4, mca_gates=4, conv3x3_gemm=22, upsample2x_fused=4)),
+                mca_fused=4, mca_gates=4, eafe_edge=8, conv3x3_gemm=22,
+                upsample2x_fused=4)),
             ("egm_unet", BASE_C, "pair", "fused", xx, PER_FORWARD_PAIR),
             ("unet", 64, "pair", "fused", xx, per_forward(
                 conv3x3_pair_gemm=9, upsample2x_fused=4))]
@@ -1346,9 +1485,10 @@ def phase_card_vs_cpu() -> None:
         if want is not None:
             check(launches == want, f"{name} {conv_impl}/{up_impl} float32 forward "
                                     f"launches {launches} != {want}")
-        else:  # no MCA; the GRFB blocks hold no plain 3x3 conv of their own
+        else:  # no MCA, no EAFE; the GRFB blocks hold no plain 3x3 conv of their own
             check(launches["conv3x3_gemm"] >= 14 and launches["up_concat_conv"] == 4
-                  and launches["mca_fused"] == launches["mca_gates"] == 0,
+                  and launches["mca_fused"] == launches["mca_gates"] == 0
+                  and launches["eafe_edge"] == 0,
                   f"grfb_unet launches {launches}")
         card_vs_cpu_record(name, list(xx.shape), gpu, cpu, launches, masks=True,
                            base_c=base_c, route=[conv_impl, up_impl])
@@ -1639,8 +1779,8 @@ def phase_train_card_vs_cpu() -> None:
 
 
 def phase_guard() -> None:
-    """On the card each of K1..K5 and K7 raises, and launches nothing, when
-    asked to run inside an autograd graph."""
+    """On the card each of K1..K5, K7 and K8 raises, and launches nothing,
+    when asked to run inside an autograd graph."""
     gen = torch.Generator().manual_seed(SEED)
     t = lambda *s: torch.randn(*s, generator=gen).cuda()
     x, x1 = t(2, 16, 16, 32), t(2, 8, 8, 32)
@@ -1654,6 +1794,7 @@ def phase_guard() -> None:
         "conv3x3_pair_gemm": lambda g: conv3x3.conv3x3_pair_gemm(
             x, t(3, 3, 32, 32).requires_grad_(g), t(32), t(3, 3, 32, 32), t(32)),
         "upsample2x_fused": lambda g: resize2x.upsample2x_fused(x1.requires_grad_(g)),
+        "eafe_edge": lambda g: edge.eafe_edge(x1.requires_grad_(g)),
         "up_concat_conv": lambda g: upconv.up_concat_conv(
             x, x1, t(3, 3, 64, 32), t(32).requires_grad_(g))}
     raised = {}
@@ -3637,6 +3778,7 @@ def main() -> None:
         records = phase_kernels(pred, batcher.predictor, images)
         phase_edges()
         phase_gates()
+        phase_eafe()
         main_paths = {"serving": phase_serving(pred, dev)["launches"],
                       "fusion": phase_fusion(pred.model, dev)["launches"],
                       "clipseg_f32": phase_clipseg_f32(dev),

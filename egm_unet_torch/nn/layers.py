@@ -10,7 +10,8 @@ chosen by ``fold_bn`` when a block is built, as in the JAX package:
   alternative routes, chosen when the model is built: ``conv_impl="pair"``
   sends both of its convs through one ``conv3x3_pair_gemm`` launch, and
   ``upsample_impl="fused"`` upsamples the decoder's low-resolution input
-  with ``upsample2x_fused`` before the concat.
+  with ``upsample2x_fused`` before the concat.  The EdgeAwareFeatureEnhancer
+  computes its edge map with ``eafe_edge`` (kernel K8 on the card).
 - ``fold_bn=False``, the training graph: conv -> ``BatchNorm`` -> ReLU in
   plain, differentiable PyTorch, no kernel.  ``module.train()`` normalises
   with the batch's statistics (the global batch's under a data group:
@@ -48,8 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from egm_unet_torch.ops.conv import conv2d
 from egm_unet_torch.ops.cuda.conv3x3 import conv3x3_gemm, conv3x3_pair_gemm
+from egm_unet_torch.ops.cuda.edge import eafe_edge, eafe_edge_plain
 from egm_unet_torch.ops.cuda.upconv import up_concat_conv
-from egm_unet_torch.ops.pooling import avg_pool2d
 from egm_unet_torch.ops.quant import (INT8_CONV_MODES, convs_on_kernels,
                                       current_quantizer, qstore, site_active)
 from egm_unet_torch.ops.resize import (UPSAMPLE_IMPLS, upsample2x_bilinear_align_corners,
@@ -507,7 +508,10 @@ class DoubleConv(nn.Module):
 
 class EdgeAwareFeatureEnhancer(nn.Module):
     """edge = x - AvgPool3x3(x); w = sigmoid(BN(conv1x1(edge)));
-    out = w*x + x.  Folded, the conv carries the BN."""
+    out = w*x + x.  Folded, the conv carries the BN and the edge is one
+    ``eafe_edge`` call (K8 on the card); the training graph and a spatial
+    group take the plain composite ``eafe_edge_plain``, which autograd
+    differentiates and whose pool fetches its halo rows."""
 
     def __init__(self, channels: int, fold_bn: bool = True):
         super().__init__()
@@ -517,7 +521,11 @@ class EdgeAwareFeatureEnhancer(nn.Module):
             self.BatchNorm_0 = BatchNorm(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        edge = x - avg_pool2d(x, 3, 1, 1)
+        if self.fold_bn and spatial() is None:
+            x = x.contiguous()
+            edge = eafe_edge(x)
+        else:
+            edge = eafe_edge_plain(x)
         w = self.Conv_0(edge)
         if not self.fold_bn:
             w = self.BatchNorm_0(w)

@@ -10,11 +10,12 @@ PyTorch version.
 | upsample2x_fused  | ``resize2x.upsample2x_fused`` | ``ops/pallas/resize2x.py::upsample2x_fused`` |
 | csa_attention     | ``csa.csa_attention``         | ``ops/pallas/csa.py::csa_attention``         |
 | mca_gates         | ``gates.mca_gates``           | none (the gates are plain jnp there)         |
+| eafe_edge         | ``edge.eafe_edge``            | none (the EAFE's edge is plain jnp there)    |
 
 Each wrapper keeps a plain count of its kernel's launches in its module.
 """
 
-from egm_unet_torch.ops.cuda import conv3x3, csa, gates, mca, resize2x, upconv
+from egm_unet_torch.ops.cuda import conv3x3, csa, edge, gates, mca, resize2x, upconv
 
 # kernel -> (module, name of its launch counter there)
 KERNEL_COUNTERS = {"conv3x3_gemm": (conv3x3, "launches"),
@@ -23,7 +24,8 @@ KERNEL_COUNTERS = {"conv3x3_gemm": (conv3x3, "launches"),
                    "up_concat_conv": (upconv, "launches"),
                    "upsample2x_fused": (resize2x, "launches"),
                    "csa_attention": (csa, "launches"),
-                   "mca_gates": (gates, "launches")}
+                   "mca_gates": (gates, "launches"),
+                   "eafe_edge": (edge, "launches")}
 
 
 def launch_counts() -> dict:

@@ -23,8 +23,8 @@ from typing import Dict, Iterable, Optional
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
-KERNELS = ("conv3x3", "conv3x3_pair", "csa_attention", "mca_fused", "mca_gates",
-           "up_concat_conv", "upsample2x")
+KERNELS = ("conv3x3", "conv3x3_pair", "csa_attention", "eafe_edge", "mca_fused",
+           "mca_gates", "up_concat_conv", "upsample2x")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -131,7 +131,8 @@ def test_pair_and_upsample_wrappers_take_the_plain_path_on_cpu():
     rng = np.random.default_rng(5)
     before = launch_counts()
     assert set(before) == {"conv3x3_gemm", "conv3x3_pair_gemm", "mca_fused", "mca_gates",
-                           "up_concat_conv", "upsample2x_fused", "csa_attention"}
+                           "eafe_edge", "up_concat_conv", "upsample2x_fused",
+                           "csa_attention"}
     for dtype in (torch.float32, torch.bfloat16):
         x = to_torch(_rand(rng, (1, 6, 8, 8))).to(dtype)
         w1, b1 = to_torch(_rand(rng, (3, 3, 8, 5), 0.2)), to_torch(_rand(rng, (5,)))

@@ -396,7 +396,7 @@ def bucket_batch(pred, images) -> torch.Tensor:
     """The predictor's own preprocessing, packed into one bucket batch."""
     batch = np.zeros((BATCH, *BUCKET, 3), np.float32)
     for row, img in enumerate(images):
-        p = pred._preprocess(img)
+        p = pred.preprocess(img)
         check(p.shape[0] <= BUCKET[0] and p.shape[1] <= BUCKET[1],
               f"image {p.shape} does not fit bucket {BUCKET}")
         batch[row, :p.shape[0], :p.shape[1]] = p
@@ -1072,7 +1072,7 @@ def phase_serving(pred, dev) -> dict:
     images = [synthetic_tp_sample(i, h, w)[0] for i, (h, w) in enumerate(sizes)]
     buckets = {}
     for img in images:
-        key = bucket_of(pred._preprocess(img).shape)
+        key = bucket_of(pred.preprocess(img).shape)
         buckets[key] = buckets.get(key, 0) + 1
     forwards = sum(-(-n // BATCH) for n in buckets.values())
 
@@ -1151,7 +1151,7 @@ def phase_serve(httpd, batcher, pred, dev) -> dict:
         buf = io.BytesIO()
         Image.fromarray(img).save(buf, format="PNG")
         bodies.append(buf.getvalue())
-    buckets = sorted({bucket_of(pair_pred._preprocess(img).shape) for img in images})
+    buckets = sorted({bucket_of(pair_pred.preprocess(img).shape) for img in images})
     check(BUCKET in buckets and len(buckets) == 2, f"request buckets {buckets}")
 
     replies = [None] * len(images)
@@ -1700,7 +1700,7 @@ def phase_train_cli(dev) -> tuple:
         pred = Predictor.from_checkpoint(save, cfg, device="cuda")
         batch = np.zeros((4, *BUCKET, 3), np.float32)
         for row, img in enumerate(images):
-            p = pred._preprocess(img)
+            p = pred.preprocess(img)
             batch[row, :p.shape[0], :p.shape[1]] = p
         x = torch.from_numpy(batch).cuda()
         reset_launch_counts()

@@ -35,7 +35,6 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from egm_unet_torch.cli.predict import bucket_pad
 from egm_unet_torch.data import DriveDataset, SyntheticTPDataset
 from egm_unet_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
                                             EvalTransform, normalize)
@@ -47,6 +46,7 @@ from egm_unet_torch.models.clip.tokenizer import tokenize
 from egm_unet_torch.models.clipseg import CLIPDensePredT
 from egm_unet_torch.models.registry import init_weights
 from egm_unet_torch.ops.resize import resize_bilinear, resize_nearest
+from egm_unet_torch.serving import bucket_batches, unet_state
 from egm_unet_torch.utils import profiling
 from egm_unet_torch.utils.convert import (clipseg_decoder_from_torch,
                                           load_clip_checkpoint, merge_params)
@@ -55,8 +55,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     """The flags the two fusion CLIs share."""
     p.add_argument("--data-path", default="./dataset")
     p.add_argument("--unet-weights", default="save_weights",
-                   help="a torch.save'd state_dict of the port's model; absent "
-                        "= seeded random weights")
+                   help="a cli/train.py save directory, or a file holding the "
+                        "folded model's state_dict; absent = seeded random weights")
     p.add_argument("--clipseg-weights", default="weights/rd64-uni.pth")
     p.add_argument("--longclip-weights", default="weights/longclip-B.pt")
     p.add_argument("--model", default="grfb_unet")
@@ -162,10 +162,13 @@ def build_clipseg(args, device) -> CLIPDensePredT:
 
 
 def build_unet(args, device) -> torch.nn.Module:
+    """The folded UNet on ``--unet-weights`` (``serving.unet_state``); seeded
+    random weights where it holds none."""
     unet = create_model(args.model, num_classes=2, base_c=args.base_c,
                         generator=torch.Generator().manual_seed(0))
-    if os.path.isfile(args.unet_weights):
-        unet.load_state_dict(torch.load(args.unet_weights, map_location="cpu"))
+    state = unet_state(args.unet_weights, args.model, 2, args.base_c)
+    if state is not None:
+        unet.load_state_dict(state)
         print(f"loaded UNet weights from {args.unet_weights}")
     return unet.to(device).eval()
 
@@ -232,24 +235,14 @@ def run_branches(clipseg, unet, cond: torch.Tensor, img565s, img352s, *,
 
     # UNet: 64-px shape buckets x fixed batches whose free slots hold zeros
     ul: List[torch.Tensor] = [None] * n  # type: ignore[list-item]
-    buckets = {}
-    with profiling.span("fusion.unet.pack"):
-        for i, im in enumerate(img565s):
-            buckets.setdefault(bucket_pad(im).shape[:2], []).append(i)
-    for (bh, bw), idxs in buckets.items():
-        for s in range(0, len(idxs), unet_batch):
-            chunk = idxs[s:s + unet_batch]
-            with profiling.span("fusion.unet.pack"):
-                batch = np.zeros((unet_batch, bh, bw, 3), np.float32)
-                for row, i in enumerate(chunk):
-                    im = img565s[i]
-                    batch[row, :im.shape[0], :im.shape[1]] = im
-            with profiling.span("fusion.unet.forward"):
-                out = unet(to_device(batch, device, unet_dtype))["out"]
-            forwards["unet_forwards"] += 1
-            for row, i in enumerate(chunk):
-                h, w = img565s[i].shape[:2]
-                ul[i] = out[row, :h, :w]
+    for idxs, batch in bucket_batches(img565s, unet_batch,
+                                      lambda: profiling.span("fusion.unet.pack")):
+        with profiling.span("fusion.unet.forward"):
+            out = unet(to_device(batch, device, unet_dtype))["out"]
+        forwards["unet_forwards"] += 1
+        for row, i in enumerate(idxs):
+            h, w = img565s[i].shape[:2]
+            ul[i] = out[row, :h, :w]
     if info is not None:
         info.update(forwards)
         info["logits_finite"] = bool(torch.isfinite(cl).all()) and all(

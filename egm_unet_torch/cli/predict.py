@@ -5,9 +5,11 @@ resized back to the original size (bilinear), foreground -> 255, saved as a
 PNG named by the last four characters of the image name; prints each
 image's latency and the final FPS.
 
-Images are zero-padded to 64-pixel shape buckets, as the JAX CLI pads them,
-and the pad region is cut off before the argmax.  Timings end in a device
-synchronisation.  The model is the BN-folded graph; ``--weights`` is a
+A loop over a ``serving.Predictor`` at batch size 1: each image is
+zero-padded to its 64-pixel shape bucket, as the JAX CLI pads it, the timed
+``Predictor.forward`` ends in a device synchronisation, and the mask is
+cropped and resized back as ``Predictor.predict`` does.  The model is the
+BN-folded graph; ``--weights`` is what ``serving.unet_state`` reads: a
 directory written by ``cli/train.py`` (its best epoch, else its latest,
 folded) or a file holding the folded graph's ``state_dict``.
 
@@ -20,8 +22,6 @@ from __future__ import annotations
 import argparse
 import os
 import time
-
-import numpy as np
 
 
 def parse_args(argv=None):
@@ -48,85 +48,63 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def bucket_pad(img: np.ndarray, multiple: int = 64) -> np.ndarray:
-    """Zero-pad an HWC image at the bottom and right to the next multiple of
-    ``multiple`` pixels, so that a handful of shapes cover every image."""
-    h, w = img.shape[:2]
-    bh = ((h + multiple - 1) // multiple) * multiple
-    bw = ((w + multiple - 1) // multiple) * multiple
-    out = np.zeros((bh, bw, img.shape[2]), img.dtype)
-    out[:h, :w] = img
-    return out
-
-
 def main(argv=None):
     args = parse_args(argv)
 
     import torch
     from PIL import Image
 
-    from egm_unet_torch.data import DriveDataset, EvalTransform, SyntheticTPDataset
-    from egm_unet_torch.device import resolve_device
-    from egm_unet_torch.models import create_model
-    from egm_unet_torch.ops.resize import resize_bilinear
-    from egm_unet_torch.utils.checkpoint import folded_state_dict, saved_epochs
+    from egm_unet_torch.data import DriveDataset, SyntheticTPDataset
+    from egm_unet_torch.serving import (Predictor, PredictorConfig, bucket_batches,
+                                        restore_mask, unet_state)
 
-    device = resolve_device(args.device)
-    dtype = torch.bfloat16 if args.amp else torch.float32
-    model = create_model(args.model, num_classes=args.num_classes + 1,
-                         base_c=args.base_c, conv_impl=args.conv_impl,
-                         upsample_impl=args.upsample_impl,
-                         generator=torch.Generator().manual_seed(0))
-    if os.path.isdir(args.weights) and saved_epochs(args.weights):
-        model.load_state_dict(folded_state_dict(args.weights, args.model,
-                                                args.num_classes + 1, args.base_c))
-        print(f"loaded weights from {args.weights}")
-    elif os.path.isfile(args.weights):
-        model.load_state_dict(torch.load(args.weights, map_location="cpu",
-                                         weights_only=True))
-        print(f"loaded weights from {args.weights}")
-    else:
+    cfg = PredictorConfig(model_name=args.model, base_c=args.base_c,
+                          num_classes=args.num_classes + 1, batch_size=1,
+                          base_size=args.base_size,
+                          dtype="bfloat16" if args.amp else "float32",
+                          conv_impl=args.conv_impl, upsample_impl=args.upsample_impl)
+    pred = Predictor(config=cfg, device=args.device)
+    state = unet_state(args.weights, cfg.model_name, cfg.num_classes, cfg.base_c)
+    if state is None:
         print("WARNING: no checkpoint dir found; using random init")
-    model = model.to(device, dtype).eval()
+    else:
+        pred.model.load_state_dict(state)
+        print(f"loaded weights from {args.weights}")
+    device = pred.device
 
     if args.synthetic:
         ds = SyntheticTPDataset(n=4)
     else:
         ds = DriveDataset(args.data_path, None, args.txt_name)
-    tf = EvalTransform(args.base_size)
 
-    @torch.inference_mode()
     def forward(x):
-        logits = model(x)["out"]
+        masks = pred.forward(x)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        return logits
+        return masks
 
     os.makedirs(args.save_result, exist_ok=True)
 
     total_time, count = 0.0, 0
     for i in range(len(ds)):
         raw, _ = ds[i]
-        h, w = raw.shape[:2]
-        img, _ = tf(raw, None)
-        rh, rw = img.shape[:2]
-        x = torch.from_numpy(bucket_pad(img)[None]).to(device, dtype)
+        img = pred.preprocess(raw)
+        [(_, batch)] = bucket_batches([img], 1)
+        x = torch.from_numpy(batch).to(device, pred.dtype)
 
         forward(x)  # warm-up
         t0 = time.perf_counter()
-        logits = forward(x)
+        masks = forward(x)
         dt = time.perf_counter() - t0
         total_time += dt
         count += 1
         print(f"inference time: {dt}")
 
-        pred = logits[0, :rh, :rw].argmax(dim=-1).float()
-        pred_full = resize_bilinear(pred[..., None], (h, w))[..., 0]
-        pred = np.rint(pred_full.cpu().numpy()).astype(np.uint8)
-        pred[pred == 1] = 255
+        pred_mask = restore_mask(masks[0], img.shape, raw.shape[:2])
+        pred_mask[pred_mask == 1] = 255
 
         name = ds.names[i][-4:]
-        Image.fromarray(pred).convert("L").save(
+        Image.fromarray(pred_mask).convert("L").save(
             os.path.join(args.save_result, f"{name}.png"))
     if count:
         print("FPS: {}".format(1 / (total_time / count)))

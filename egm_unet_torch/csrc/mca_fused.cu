@@ -58,13 +58,6 @@
 #include "common.cuh"
 #include "mma.cuh"
 
-// phase marks; empty here, csrc/probe/mca_up_phases.cu times them
-#ifndef EGM_PHASE
-#define EGM_PHASE_BEGIN
-#define EGM_PHASE(i)
-#define EGM_PHASE_END
-#endif
-
 namespace {
 
 constexpr int TH = 16, TW = 14, CC = 32, NT = 256;
@@ -469,7 +462,6 @@ mca_tile_kernel(const __grid_constant__ CUtensorMap map_x,
     egm::mma::fence_async_proxy();
   }
   __syncthreads();
-  EGM_PHASE_BEGIN
 
   int t = blockIdx.x;
   if (t < a.tiles) load_tile<T, VEC>(a, &map_x, &map_r, t, raw, sh, gates, bar_addr);
@@ -478,23 +470,18 @@ mca_tile_kernel(const __grid_constant__ CUtensorMap map_x,
     egm::mma::cp_async_wait<0>();
     if constexpr (VEC) egm::mma::mbarrier_wait(bar_addr, it & 1);
     __syncthreads();
-    EGM_PHASE(0)
     const Tile tl = *reinterpret_cast<const Tile*>(gates + NGATE);
     gate_pass<T, VEC>(raw, sh, gates);
     __syncthreads();
-    EGM_PHASE(1)
     deviation_pass<T>(a, tl, raw, d2);
     __syncthreads();
-    EGM_PHASE(2)
     combine_pass<T, VEC>(a, tl, raw, sh, gates, d2);
     __syncthreads();  // the stage is refilled next
-    EGM_PHASE(3)
     if (t + (int)gridDim.x < a.tiles)
       load_tile<T, VEC>(a, &map_x, &map_r, t + gridDim.x, raw, sh, gates, bar_addr);
     egm::mma::cp_async_commit();
   }
   egm::mma::cp_async_wait<0>();
-  EGM_PHASE_END
 }
 
 // A tensor map over x as [C, W, H, B] (innermost first) with boxes of

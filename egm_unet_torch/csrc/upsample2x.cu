@@ -37,13 +37,6 @@
 #include "common.cuh"
 #include "mma.cuh"
 
-// phase marks; empty here, csrc/probe/mca_up_phases.cu times them
-#ifndef EGM_PHASE
-#define EGM_PHASE_BEGIN
-#define EGM_PHASE(i)
-#define EGM_PHASE_END
-#endif
-
 namespace {
 
 constexpr int NT = 256, BR = 16;
@@ -86,7 +79,6 @@ upsample2x_band_kernel(const T* __restrict__ x, T* __restrict__ out,
   float* s_cwl = reinterpret_cast<float*>(s_chi + bq);
   float* s_cwh = s_cwl + bq;
   P* patch = reinterpret_cast<P*>(smem + taps_bytes(bq));
-  EGM_PHASE_BEGIN
 
   const int H2 = 2 * h, W2 = 2 * w, CV = C / VEC;
   const int q0 = blockIdx.x * bq, p0 = blockIdx.y * BR, b = blockIdx.z;
@@ -124,7 +116,6 @@ upsample2x_band_kernel(const T* __restrict__ x, T* __restrict__ out,
     egm::mma::cp_async_wait<0>();
   }
   __syncthreads();
-  EGM_PHASE(0)
 
   P* ob = reinterpret_cast<P*>(out + (size_t)b * H2 * W2 * C);
   for (int e = tid; e < nq * CV; e += NT) {
@@ -172,8 +163,6 @@ upsample2x_band_kernel(const T* __restrict__ x, T* __restrict__ out,
       ob[((p0 + p) * W2 + q0 + q) * CV + v] = res;
     }
   }
-  EGM_PHASE(1)
-  EGM_PHASE_END
 }
 
 template <typename T, int VEC>

@@ -12,26 +12,19 @@ PyTorch version.
 | mca_gates         | ``gates.mca_gates``           | none (the gates are plain jnp there)         |
 | eafe_edge         | ``edge.eafe_edge``            | none (the EAFE's edge is plain jnp there)    |
 
-Each wrapper keeps a plain count of its kernel's launches in its module.
+Every launch goes through a ``build.Entry``, which counts it in
+``build.LAUNCHES``.
 """
 
-from egm_unet_torch.ops.cuda import conv3x3, csa, edge, gates, mca, resize2x, upconv
-
-# kernel -> (module, name of its launch counter there)
-KERNEL_COUNTERS = {"conv3x3_gemm": (conv3x3, "launches"),
-                   "conv3x3_pair_gemm": (conv3x3, "pair_launches"),
-                   "mca_fused": (mca, "launches"),
-                   "up_concat_conv": (upconv, "launches"),
-                   "upsample2x_fused": (resize2x, "launches"),
-                   "csa_attention": (csa, "launches"),
-                   "mca_gates": (gates, "launches"),
-                   "eafe_edge": (edge, "launches")}
+# each wrapper module registers its entries on import
+from egm_unet_torch.ops.cuda import (build, conv3x3, csa, edge, gates, mca,  # noqa: F401
+                                     resize2x, upconv)
 
 
 def launch_counts() -> dict:
-    return {name: getattr(mod, attr) for name, (mod, attr) in KERNEL_COUNTERS.items()}
+    return dict(build.LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for mod, attr in KERNEL_COUNTERS.values():
-        setattr(mod, attr, 0)
+    for name in build.LAUNCHES:
+        build.LAUNCHES[name] = 0

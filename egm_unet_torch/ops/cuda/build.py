@@ -1,10 +1,14 @@
 """Builds the CUDA kernels under ``egm_unet_torch/csrc`` and loads them.
 
-Each ``csrc/<name>.cu`` compiles, with ``nvcc`` for ``sm_90a``, into its own
-shared library with a plain C interface; the wrappers load it with ``ctypes``.
-Nothing is built when the package is imported: the first launch builds its
-kernel, and ``build_all`` builds every kernel at once, one ``nvcc`` process
-per source, all started together.
+Each ``csrc/<name>.cu`` (``KERNELS``: every top-level source) compiles, with
+``nvcc`` for ``sm_90a``, into its own shared library with a plain C
+interface.  Nothing is built when the package is imported: the first launch
+builds its kernel, and ``build_all`` builds every kernel at once, one
+``nvcc`` process per source, all started together.
+
+A wrapper declares each C entry point it calls as an ``Entry``; calling the
+entry configures the ``ctypes`` function once, launches, checks the error and
+counts the launch under the kernel's name in ``LAUNCHES``.
 
 Libraries go to ``egm_unet_torch/_build`` (or ``$EGM_TORCH_BUILD_DIR``) under
 a name that hashes the sources and flags, so an edited source is rebuilt.
@@ -23,12 +27,14 @@ from typing import Dict, Iterable, Optional
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
-KERNELS = ("conv3x3", "conv3x3_pair", "csa_attention", "eafe_edge", "mca_fused",
-           "mca_gates", "up_concat_conv", "upsample2x")
+KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# kernel -> launches since the last reset, one key an ``Entry``
+LAUNCHES: Dict[str, int] = {}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
 
 
 def build_dir() -> Path:
@@ -99,6 +105,24 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_launch(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+class Entry:
+    """The C entry point ``symbol`` of ``csrc/<source>.cu``, whose launches
+    count as ``kernel``.  ``signature`` spells its parameters, one letter
+    each: ``p`` a pointer, ``i`` an int, ``l`` a long long; it returns a
+    ``cudaError_t``."""
+
+    def __init__(self, kernel: str, source: str, symbol: str, signature: str):
+        self.kernel, self.source, self.symbol = kernel, source, symbol
+        self.argtypes = [_CTYPES[c] for c in signature]
+        self._fn = None
+        LAUNCHES[kernel] = 0
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(load(self.source), self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.kernel}: CUDA launch failed with cudaError {err}")
+        LAUNCHES[self.kernel] += 1

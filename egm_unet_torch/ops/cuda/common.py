@@ -1,11 +1,19 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and device facts shared by the kernel wrappers."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 232448  # shared memory one block may opt into on an H100
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_activation(name: str, t: torch.Tensor, ndim: int = 4) -> None:

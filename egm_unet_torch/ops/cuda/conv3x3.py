@@ -35,24 +35,24 @@ nothing falls back from one to the other.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from egm_unet_torch.ops.cuda import build
-from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
+from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, SMEM_LIMIT, check_activation,
                                             check_no_autograd,
                                             check_same_device, stream_handle)
 
-launches = 0  # conv3x3_gemm kernel launches since the last reset
-pair_launches = 0  # conv3x3_pair_gemm kernel launches since the last reset
+_GEMM = build.Entry("conv3x3_gemm", "conv3x3", "egm_conv3x3", "p" * 4 + "i" * 11 + "p")
+_PAIR = build.Entry("conv3x3_pair_gemm", "conv3x3_pair", "egm_conv3x3_pair",
+                    "p" * 6 + "i" * 12 + "p")
 
-# csrc/conv3x3_pair.cu: tiles (TH, TW) in order of preference and the shared
-# memory a block may opt into on sm_90.  The tensor-core kernel keeps a ring
-# of slots, each 16 channels (PAIR_CC) of the input halo and the nine taps'
-# weight tile for them, ``ring_depth(wider column chunk)`` deep.  Where all weight
+# csrc/conv3x3_pair.cu: tiles (TH, TW) in order of preference.  The
+# tensor-core kernel keeps a ring of slots, each 16 channels (PAIR_CC) of the
+# input halo and the nine taps' weight tile for them, ``ring_depth(wider
+# column chunk)`` deep.  Where all weight
 # tiles fit beside the intermediate and a ring of two input-halo chunks in
 # half an SM's shared memory (PAIR_RESIDENT_LIMIT), they stay resident, a
 # block walks many 8x16 tiles, and the column chunks (BN1, BN2) are the
@@ -62,7 +62,6 @@ pair_launches = 0  # conv3x3_pair_gemm kernel launches since the last reset
 # stages one K chunk of 16 as float32 (16 x (64 + 4 + BN)).
 PAIR_TILES = ((16, 16), (8, 16), (8, 8), (4, 4), (2, 2))
 PAIR_TMA_TILES = ((16, 16), (8, 16))  # without resident weights: filled by the TMA unit
-PAIR_SMEM_LIMIT = 232448
 PAIR_RESIDENT_LIMIT = 233472 // 2 - 1024  # two blocks per SM, 1 KB reserved each
 PAIR_CC = 16
 PAIR_RESIDENT_CHUNKS = ((32, 32), (64, 32), (64, 64))
@@ -76,8 +75,6 @@ CONV_MODES = {"async": 0, "resident": 1, "tma": 2, "cuda_cores": -1}
 CONV_RESIDENT_CHUNKS = (16, 32, 64)
 CONV_TMA_TILES = ((8, 16, 32, "tma"), (16, 16, 64, "tma"), (8, 16, 128, "tma"))
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def _check(x, w, b):
@@ -109,7 +106,6 @@ def conv3x3_gemm(x: torch.Tensor, w: torch.Tensor,
                  relu: bool = False) -> torch.Tensor:
     """x (B, H, W, C) contiguous, float32 or bfloat16; w (3, 3, C, Co) HWIO,
     cast to x's dtype; b (Co,) or None, added in float32."""
-    global launches
     _check(x, w, b)
     check_no_autograd("conv3x3_gemm", x, w, b)
     if x.device.type == "cpu":
@@ -124,15 +120,9 @@ def conv3x3_gemm(x: torch.Tensor, w: torch.Tensor,
     th, tw, bn, mode = conv3x3_tile(
         c, co, x.element_size(),
         aligned=all(t.data_ptr() % 16 == 0 for t in (x, wq)))
-    lib = build.load("conv3x3")
-    fn = lib.egm_conv3x3
-    fn.argtypes = [_P] * 4 + [_I] * 11 + [_P]
-    fn.restype = _I
-    err = fn(x.data_ptr(), wq.data_ptr(), None if bq is None else bq.data_ptr(),
-             out.data_ptr(), bsz, h, wd, c, co, int(relu), th, tw, bn,
-             CONV_MODES[mode], DTYPE_CODES[x.dtype], stream_handle(x.device))
-    build.check_launch(err, "conv3x3_gemm")
-    launches += 1
+    _GEMM(x.data_ptr(), wq.data_ptr(), None if bq is None else bq.data_ptr(),
+          out.data_ptr(), bsz, h, wd, c, co, int(relu), th, tw, bn,
+          CONV_MODES[mode], DTYPE_CODES[x.dtype], stream_handle(x.device))
     return out
 
 
@@ -295,7 +285,7 @@ def pair_tile(c: int, cm: int, co: int, itemsize: int, aligned: bool = True) -> 
         else:
             bn1 = bn2 = 64
         tile = (th, tw, bn1, bn2, False)
-        if pair_smem_bytes(tile, c, cm, co, itemsize) <= PAIR_SMEM_LIMIT:
+        if pair_smem_bytes(tile, c, cm, co, itemsize) <= SMEM_LIMIT:
             return tile
     raise ValueError(f"conv3x3_pair_gemm: a mid width of {cm} channels does "
                      "not fit shared memory at the smallest tile")
@@ -352,7 +342,6 @@ def conv3x3_pair_gemm(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """x (B, H, W, C) contiguous, float32 or bfloat16; w1 (3, 3, C, Cm) and
     w2 (3, 3, Cm, Co) HWIO, cast to x's dtype; b1 (Cm,) and b2 (Co,), added in
     float32.  Returns (B, H, W, Co) in x's dtype."""
-    global pair_launches
     _check_pair(x, w1, b1, w2, b2)
     check_no_autograd("conv3x3_pair_gemm", x, w1, b1, w2, b2)
     if x.device.type == "cpu":
@@ -367,13 +356,7 @@ def conv3x3_pair_gemm(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     out = torch.empty((bsz, h, wd, co), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = build.load("conv3x3_pair")
-    fn = lib.egm_conv3x3_pair
-    fn.argtypes = [_P] * 6 + [_I] * 12 + [_P]
-    fn.restype = _I
-    err = fn(x.data_ptr(), w1q.data_ptr(), b1q.data_ptr(), w2q.data_ptr(),
-             b2q.data_ptr(), out.data_ptr(), bsz, h, wd, c, cm, co, th, tw, bn1,
-             bn2, int(resident), DTYPE_CODES[x.dtype], stream_handle(x.device))
-    build.check_launch(err, "conv3x3_pair_gemm")
-    pair_launches += 1
+    _PAIR(x.data_ptr(), w1q.data_ptr(), b1q.data_ptr(), w2q.data_ptr(),
+          b2q.data_ptr(), out.data_ptr(), bsz, h, wd, c, cm, co, th, tw, bn1,
+          bn2, int(resident), DTYPE_CODES[x.dtype], stream_handle(x.device))
     return out

@@ -38,8 +38,6 @@ two softmaxes from the saved q, k, v and calls neither ``csa_plain`` nor
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from egm_unet_torch.ops.attention import multi_head_attention
@@ -47,13 +45,11 @@ from egm_unet_torch.ops.cuda import build
 from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_same_device,
                                             stream_handle)
 
-launches = 0  # kernel launches since the last reset
+_CSA = build.Entry("csa_attention", "csa_attention", "egm_csa_attention",
+                   "p" * 4 + "i" * 4 + "l" * 6 + "ip")
 
 MAX_HEAD_DIM = 128
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
 
 
 def csa_variant(dtype: torch.dtype) -> str:
@@ -163,21 +159,14 @@ def csa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _forward(q, k, v, num_heads):
-    global launches
     if q.device.type == "cpu":
         return csa_plain(q, k, v, num_heads)
     b, s, d = q.shape
     out = torch.empty((b, s, d), dtype=q.dtype, device=q.device)
-    lib = build.load("csa_attention")
-    fn = lib.egm_csa_attention
-    fn.argtypes = [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _P]
-    fn.restype = _I
     strides = [n for t in (q, k, v) for n in (t.stride(1), t.stride(0))]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-             num_heads, d // num_heads, *strides, DTYPE_CODES[q.dtype],
-             stream_handle(q.device))
-    build.check_launch(err, "csa_attention")
-    launches += 1
+    _CSA(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+         num_heads, d // num_heads, *strides, DTYPE_CODES[q.dtype],
+         stream_handle(q.device))
     return out
 
 

@@ -28,28 +28,22 @@ map split by rows over a spatial group (its pool fetches the halo rows).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from egm_unet_torch.ops.cuda import build
-from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
-                                            check_no_autograd, stream_handle)
+from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, SMEM_LIMIT, check_activation,
+                                            check_no_autograd, sm_count, stream_handle)
 from egm_unet_torch.ops.pooling import avg_pool2d
 from egm_unet_torch.parallel.mesh import spatial
 
-launches = 0  # kernel launches since the last reset
+_EDGE = build.Entry("eafe_edge", "eafe_edge", "egm_eafe_edge", "pp" + "i" * 8 + "p")
 
 TILE_UNITS = 512  # units of a tile's row, at most
 PF = 2  # staged rows in flight past the computed window
 SLOTS = PF + 3  # shared-memory rows of the ring
 BAND_MIN, BAND_MAX = 8, 32  # rows of a band
 BLOCKS_PER_SM = 8  # blocks the band choice aims for, an SM
-SMEM_LIMIT = 232448  # what one block may opt into on an H100
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def eafe_edge_plain(x: torch.Tensor) -> torch.Tensor:
@@ -99,15 +93,9 @@ def eafe_edge_smem_bytes(tw: int, c: int, itemsize: int) -> int:
     return SLOTS * (tw + 2) * c * itemsize
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def eafe_edge(x: torch.Tensor) -> torch.Tensor:
     """x (B, H, W, C) contiguous, float32 or bfloat16: ``x - avg3x3(x)`` in
     x's dtype."""
-    global launches
     check_activation("x", x)
     check_no_autograd("eafe_edge", x)
     if x.device.type == "cpu":
@@ -129,12 +117,7 @@ def eafe_edge(x: torch.Tensor) -> torch.Tensor:
     tw, tiles = eafe_edge_tile(w, c // uc)
     if eafe_edge_smem_bytes(tw, c, x.element_size()) > SMEM_LIMIT:
         raise ValueError(f"C = {c} needs more shared memory than a block has")
-    r, _ = eafe_edge_bands(h, tiles, b, _sm_count(x.device.index))
-    fn = build.load("eafe_edge").egm_eafe_edge
-    fn.argtypes = [_P, _P] + [_I] * 8 + [_P]
-    fn.restype = _I
-    err = fn(x.data_ptr(), out.data_ptr(), b, h, w, c, 16 if variant == "vec16" else 1,
-             tw, r, DTYPE_CODES[x.dtype], stream_handle(x.device))
-    build.check_launch(err, "eafe_edge")
-    launches += 1
+    r, _ = eafe_edge_bands(h, tiles, b, sm_count(x.device))
+    _EDGE(x.data_ptr(), out.data_ptr(), b, h, w, c, 16 if variant == "vec16" else 1,
+          tw, r, DTYPE_CODES[x.dtype], stream_handle(x.device))
     return out

@@ -36,31 +36,27 @@ reductions over H sum over the group, and the H gate's conv fetches its halo.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from egm_unet_torch.ops.cuda import build
-from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
+from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, SMEM_LIMIT, check_activation,
                                             check_no_autograd, check_same_device,
-                                            stream_handle)
+                                            sm_count, stream_handle)
 from egm_unet_torch.parallel.halo import halo, spatial_sum
 from egm_unet_torch.parallel.mesh import spatial
 
-launches = 0  # kernel launches (one a call, three CUDA launches) since the last reset
+# one count a call (three CUDA launches)
+_GATES = build.Entry("mca_gates", "mca_gates", "egm_mca_gates", "p" * 13 + "i" * 14 + "p")
 
 NT = 256  # threads of a block
 BLOCKS_PER_SM = 3  # the pass kernels' launch bounds
 BAND_ELEMENTS = 65536  # elements of a band, about
 RING = 16  # rows of per-warp row sums a block holds between flushes
 MAX_CHANNELS = 2048  # 256 lanes x 8 channels
-SMEM_LIMIT = 232448  # what one block may opt into on an H100
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 GateParams = Sequence[Tuple[torch.Tensor, torch.Tensor]]  # (weight [2], conv [k]) for H, W, C
 
@@ -165,11 +161,6 @@ def mca_gates_smem_bytes(w: int, c: int, vec: int, dev: bool) -> int:
     return 4 * (floats + (w + c if dev else 0))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _counters = {}  # (device, stream) -> int32 counters, zero between calls
 
 
@@ -214,7 +205,6 @@ def mca_gates(x: torch.Tensor, params: GateParams, stats: bool = False):
     [2], conv [k]) pairs of the H, W and C gates, one dtype.  Returns the
     float32 gates (g_h, g_w, g_c); with ``stats``, also the (avg, std) pair of
     each axis, float32 [B, L], which the kernel leaves beside them."""
-    global launches
     flat = _check(x, params)
     check_no_autograd("mca_gates", x, *flat)
     if x.device.type == "cpu":
@@ -236,23 +226,17 @@ def mca_gates(x: torch.Tensor, params: GateParams, stats: bool = False):
         raise ValueError(f"W = {w} needs more shared memory than a block has")
     lanes, k, _ = mca_gates_lanes(c, vec)
     p = mca_gates_bands(h, w, c)
-    g = mca_gates_schedule(b * p, _sm_count(x.device.index))
+    g = mca_gates_schedule(b * p, sm_count(x.device))
     f32 = dict(device=x.device, dtype=torch.float32)
     scratch = torch.empty(mca_gates_scratch_floats(b, h, w, c, p), **f32)
     out = [torch.empty(b, m, **f32) for m in (h, w, c)]
     st = torch.empty(b, 2, h + w + c, **f32) if stats else None
     stream = stream_handle(x.device)
     count = _image_counters(x.device, stream, b)
-    lib = build.load("mca_gates")
-    fn = lib.egm_mca_gates
-    fn.argtypes = [_P] * 13 + [_I] * 14 + [_P]
-    fn.restype = _I
-    err = fn(x.data_ptr(), *(t.data_ptr() for t in flat), *(o.data_ptr() for o in out),
-             None if st is None else st.data_ptr(), scratch.data_ptr(), count.data_ptr(),
-             b, h, w, c, *(int(t.shape[0]) for t in flat[1::2]), vec, lanes, k, p, g,
-             DTYPE_CODES[x.dtype], DTYPE_CODES[flat[0].dtype], stream)
-    build.check_launch(err, "mca_gates")
-    launches += 1
+    _GATES(x.data_ptr(), *(t.data_ptr() for t in flat), *(o.data_ptr() for o in out),
+           None if st is None else st.data_ptr(), scratch.data_ptr(), count.data_ptr(),
+           b, h, w, c, *(int(t.shape[0]) for t in flat[1::2]), vec, lanes, k, p, g,
+           DTYPE_CODES[x.dtype], DTYPE_CODES[flat[0].dtype], stream)
     gates = tuple(out)
     if not stats:
         return gates

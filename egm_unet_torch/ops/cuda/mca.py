@@ -30,8 +30,6 @@ come from the neighbouring ranks.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
@@ -43,12 +41,10 @@ from egm_unet_torch.ops.shuffle import channel_shuffle
 from egm_unet_torch.parallel.halo import halo, image_rows
 from egm_unet_torch.parallel.mesh import spatial
 
-launches = 0  # kernel launches since the last reset
+_MCA = build.Entry("mca_fused", "mca_fused", "egm_mca_fused", "p" * 5 + "i" * 7 + "p")
 
 MCA_TILE = (16, 14, 32)  # rows, columns, channels of a tile
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def _check(x, g_h, g_w, g_c, groups):
@@ -170,7 +166,6 @@ def mca_fused(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor,
               g_c: torch.Tensor, groups: int = 4) -> torch.Tensor:
     """x (B, H, W, C) contiguous, float32 or bfloat16; g_h/g_w/g_c float32
     post-sigmoid gates (B, H)/(B, W)/(B, C)."""
-    global launches
     _check(x, g_h, g_w, g_c, groups)
     check_no_autograd("mca_fused", x, g_h, g_w, g_c)
     if x.device.type == "cpu":
@@ -182,13 +177,7 @@ def mca_fused(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor,
     out = torch.empty_like(x)
     aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     vec = mca_variant(x.dtype, c, groups, aligned) == "tile_tma"
-    lib = build.load("mca_fused")
-    fn = lib.egm_mca_fused
-    fn.argtypes = [_P, _P, _P, _P, _P] + [_I] * 7 + [_P]
-    fn.restype = _I
-    err = fn(x.data_ptr(), g_h.data_ptr(), g_w.data_ptr(), g_c.data_ptr(),
-             out.data_ptr(), b, h, w, c, groups, int(vec), DTYPE_CODES[x.dtype],
-             stream_handle(x.device))
-    build.check_launch(err, "mca_fused")
-    launches += 1
+    _MCA(x.data_ptr(), g_h.data_ptr(), g_w.data_ptr(), g_c.data_ptr(),
+         out.data_ptr(), b, h, w, c, groups, int(vec), DTYPE_CODES[x.dtype],
+         stream_handle(x.device))
     return out

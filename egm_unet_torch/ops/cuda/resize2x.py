@@ -28,8 +28,6 @@ whole 16-byte vectors and x and out are 16-byte aligned, else
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from egm_unet_torch.ops.cuda import build
@@ -38,13 +36,11 @@ from egm_unet_torch.ops.cuda.common import (DTYPE_CODES, check_activation,
                                             stream_handle)
 from egm_unet_torch.ops.resize import linear_taps, upsample2x_taps
 
-launches = 0  # kernel launches since the last reset
+_UP = build.Entry("upsample2x_fused", "upsample2x", "egm_upsample2x", "p" * 10 + "i" * 7 + "p")
 
 UP_BAND_ROWS = 16  # output rows of a block's band
 UP_THREADS = 256
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def _blend_axis(x: torch.Tensor, axis: int, taps) -> torch.Tensor:
@@ -113,7 +109,6 @@ def upsample_smem_bytes(tile: tuple, c: int, itemsize: int) -> int:
 
 def upsample2x_fused(x: torch.Tensor) -> torch.Tensor:
     """x (B, H, W, C) contiguous, float32 or bfloat16 -> (B, 2H, 2W, C)."""
-    global launches
     check_activation("x", x)
     check_no_autograd("upsample2x_fused", x)
     if x.device.type == "cpu":
@@ -129,13 +124,7 @@ def upsample2x_fused(x: torch.Tensor) -> torch.Tensor:
     cols = upsample2x_taps(w, torch.float32, x.device)
     aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     _, bq, vec = upsample_tile(c, x.element_size(), aligned)
-    lib = build.load("upsample2x")
-    fn = lib.egm_upsample2x
-    fn.argtypes = [_P] * 10 + [_I] * 7 + [_P]
-    fn.restype = _I
-    err = fn(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in rows),
-             *(t.data_ptr() for t in cols), b, h, w, c, bq, int(vec > 1),
-             DTYPE_CODES[x.dtype], stream_handle(x.device))
-    build.check_launch(err, "upsample2x_fused")
-    launches += 1
+    _UP(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in rows),
+        *(t.data_ptr() for t in cols), b, h, w, c, bq, int(vec > 1),
+        DTYPE_CODES[x.dtype], stream_handle(x.device))
     return out

@@ -26,8 +26,6 @@ after the column pass, as the plain two-matmul upsample does.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from egm_unet_torch.ops.cuda import build
@@ -42,10 +40,9 @@ from egm_unet_torch.ops.cuda.conv3x3 import (CONV_MODES, CONV_RESIDENT_CHUNKS,
 from egm_unet_torch.ops.resize import (upsample2x_bilinear_align_corners,
                                        upsample2x_taps)
 
-launches = 0  # kernel launches since the last reset
+_UPCONV = build.Entry("up_concat_conv", "up_concat_conv", "egm_up_concat_conv",
+                      "p" * 13 + "i" * 11 + "p")
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def _check(x2, x1, kernel, bias):
@@ -155,7 +152,6 @@ def up_concat_conv(x2: torch.Tensor, x1: torch.Tensor, kernel: torch.Tensor,
     """x1 (B, h, w, C1), x2 (B, 2h, 2w, C2), contiguous, one dtype (float32
     or bfloat16); kernel (3, 3, C2+C1, Co) HWIO; bias (Co,), rounded to the
     working dtype and added in float32."""
-    global launches
     _check(x2, x1, kernel, bias)
     check_no_autograd("up_concat_conv", x2, x1, kernel, bias)
     if x1.device.type == "cpu":
@@ -173,14 +169,8 @@ def up_concat_conv(x2: torch.Tensor, x1: torch.Tensor, kernel: torch.Tensor,
         aligned=all(t.data_ptr() % 16 == 0 for t in (x2, x1, kq)))
     rows = upsample2x_taps(h, x1.dtype, x1.device)
     cols = upsample2x_taps(w, x1.dtype, x1.device)
-    lib = build.load("up_concat_conv")
-    fn = lib.egm_up_concat_conv
-    fn.argtypes = [_P] * 13 + [_I] * 11 + [_P]
-    fn.restype = _I
-    err = fn(x2.data_ptr(), x1.data_ptr(), kq.data_ptr(), bq.data_ptr(),
-             out.data_ptr(), *(t.data_ptr() for t in rows),
-             *(t.data_ptr() for t in cols), b, h, w, c1, c2, co, th, tw, bn,
-             CONV_MODES[mode], DTYPE_CODES[x1.dtype], stream_handle(x1.device))
-    build.check_launch(err, "up_concat_conv")
-    launches += 1
+    _UPCONV(x2.data_ptr(), x1.data_ptr(), kq.data_ptr(), bq.data_ptr(),
+            out.data_ptr(), *(t.data_ptr() for t in rows),
+            *(t.data_ptr() for t in cols), b, h, w, c1, c2, co, th, tw, bn,
+            CONV_MODES[mode], DTYPE_CODES[x1.dtype], stream_handle(x1.device))
     return out

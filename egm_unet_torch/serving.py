@@ -1,11 +1,14 @@
-"""Batched inference (port of ``egm_unet_tpu/serving.py``).
+"""Batched inference (port of ``egm_unet_tpu/serving.py``), and the UNet
+inference path that the CLIs share.
 
 Requests are resized (short side ``base_size``) and normalized on the host,
 grouped into shape buckets (multiples of 64 pixels), packed into
-fixed-size batches whose free slots hold zero images, run through the
-BN-folded model, and their argmax masks resized back to each image's
-original size.  In ``bfloat16`` the weights are cast to bfloat16, as the JAX
-package's deployment cast does.
+fixed-size batches whose free slots hold zero images (``bucket_batches``),
+run through the BN-folded model, and their argmax masks resized back to each
+image's original size (``restore_mask``).  In ``bfloat16`` the weights are
+cast to bfloat16, as the JAX package's deployment cast does.  ``unet_state``
+reads the weights that ``Predictor.from_checkpoint``, ``cli/predict.py`` and
+the fusion CLIs load.
 
 ``quant`` (``"int8df"``, ``"int8"``, ``"int8full"``; ``ops/quant.py``):
 the scales are calibrated on the first bucket batch the predictor runs,
@@ -19,7 +22,7 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Any, List, Mapping, Optional, Sequence
+from typing import Any, Callable, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +33,7 @@ from egm_unet_torch.models.registry import create_model
 from egm_unet_torch.ops.quant import (QUANT_MODES, SHIP_QSTORE_SITES, Quantizer,
                                       calibrate_quant_scales)
 from egm_unet_torch.ops.resize import resize_bilinear
-from egm_unet_torch.utils.checkpoint import folded_state_dict
+from egm_unet_torch.utils.checkpoint import folded_state_dict, saved_epochs
 from egm_unet_torch.utils.from_flax import load_flax_variables
 
 PAD_MULTIPLE = 64  # bucket granularity, as the JAX Predictor's default
@@ -41,6 +44,53 @@ def bucket_of(hw) -> tuple:
     multiple of PAD_MULTIPLE."""
     m = PAD_MULTIPLE
     return -(-hw[0] // m) * m, -(-hw[1] // m) * m
+
+
+def bucket_batches(images: Sequence[np.ndarray], batch_size: int,
+                   pack: Callable[[], Any] = contextlib.nullcontext
+                   ) -> Iterator[Tuple[List[int], np.ndarray]]:
+    """Preprocessed HWC float32 images grouped by bucket (in first-seen
+    order), in fixed batches of ``batch_size``: yields ``(idxs, batch)``,
+    image ``idxs[r]`` at the top left of row r of the float32 zero batch
+    [batch_size, bucket H, bucket W, 3].  ``pack()`` is entered around the
+    grouping and around each fill (a profiling span, say)."""
+    buckets = {}
+    with pack():
+        for i, im in enumerate(images):
+            buckets.setdefault(bucket_of(im.shape), []).append(i)
+    for (bh, bw), idxs in buckets.items():
+        for start in range(0, len(idxs), batch_size):
+            chunk = idxs[start:start + batch_size]
+            with pack():
+                batch = np.zeros((batch_size, bh, bw, 3), np.float32)
+                for row, i in enumerate(chunk):
+                    im = images[i]
+                    batch[row, :im.shape[0], :im.shape[1]] = im
+            yield chunk, batch
+
+
+def restore_mask(pred: torch.Tensor, hw, size_hw) -> np.ndarray:
+    """A bucket row's argmax mask cropped to the preprocessed image's ``hw``,
+    bilinearly resized to the original ``size_hw`` and rounded: uint8."""
+    mask = pred[:hw[0], :hw[1]].float()
+    full = resize_bilinear(mask[..., None], size_hw)
+    return np.rint(full[..., 0].cpu().numpy()).astype(np.uint8)
+
+
+def unet_state(path: str, model_name: str, num_classes: int,
+               base_c: int) -> Optional[dict]:
+    """The ``state_dict`` of the BN-folded ``create_model(model_name, ...)``
+    that ``path`` holds: a directory written by the port's trainer
+    (``cli/train.py``, ``utils/checkpoint.py``), whose best epoch (else its
+    latest) is folded; or a file holding the ``state_dict`` as
+    ``torch.save`` wrote it (the names are the same on every kernel route).
+    None when ``path`` is neither.  The JAX package's orbax directories are
+    not read (orbax needs JAX)."""
+    if saved_epochs(path):
+        return folded_state_dict(path, model_name, num_classes, base_c)
+    if os.path.isfile(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    return None
 
 
 @dataclasses.dataclass
@@ -91,24 +141,16 @@ class Predictor:
     @classmethod
     def from_checkpoint(cls, path: str, config: PredictorConfig = PredictorConfig(),
                         *, device=None) -> "Predictor":
-        """A predictor on the weights in ``path``: a directory written by the
-        port's trainer (``cli/train.py``, ``utils/checkpoint.py``), whose best
-        epoch (else its latest) is folded into the inference graph; or a file
-        holding the ``state_dict`` of ``create_model(config.model_name,
-        ...)`` as ``torch.save`` wrote it (what ``cli/eval_clipseg.py
-        --unet-weights`` loads too; the names are the same on every kernel
-        route).  The JAX package's orbax directories are not read (orbax
-        needs JAX)."""
+        """A predictor on the weights in ``path`` (``unet_state``); raises
+        when ``path`` holds none."""
+        state = unet_state(path, config.model_name, config.num_classes, config.base_c)
+        if state is None:
+            raise FileNotFoundError(f"no trainer checkpoint or state_dict file at {path}")
         pred = cls(config=config, device=device)
-        if os.path.isdir(path):
-            state = folded_state_dict(path, config.model_name, config.num_classes,
-                                      config.base_c)
-        else:
-            state = torch.load(path, map_location="cpu", weights_only=True)
         pred.model.load_state_dict(state)
         return pred
 
-    def _preprocess(self, image: np.ndarray) -> np.ndarray:
+    def preprocess(self, image: np.ndarray) -> np.ndarray:
         resized, _ = resize_short_side(image, None, self.cfg.base_size)
         return normalize(resized)
 
@@ -133,27 +175,10 @@ class Predictor:
     def predict(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         """uint8 HWC images (any sizes) -> per-image uint8 mask at the
         original resolution."""
-        prepped = [self._preprocess(img) for img in images]
-        buckets = {}
-        for i, p in enumerate(prepped):
-            buckets.setdefault(bucket_of(p.shape), []).append(i)
-
+        prepped = [self.preprocess(img) for img in images]
         results: List[Optional[np.ndarray]] = [None] * len(images)
-        bs = self.cfg.batch_size
-        for (bh, bw), idxs in buckets.items():
-            for start in range(0, len(idxs), bs):
-                chunk = idxs[start:start + bs]
-                # always a full fixed-size batch: free slots are zero images
-                batch = np.zeros((bs, bh, bw, 3), np.float32)
-                for row, i in enumerate(chunk):
-                    p = prepped[i]
-                    batch[row, :p.shape[0], :p.shape[1]] = p
-                x = torch.from_numpy(batch).to(self.device, self.dtype)
-                preds = self.forward(x)
-                for row, i in enumerate(chunk):
-                    p = prepped[i]
-                    h, w = images[i].shape[:2]
-                    mask = preds[row, :p.shape[0], :p.shape[1]].float()
-                    full = resize_bilinear(mask[..., None], (h, w))
-                    results[i] = np.rint(full[..., 0].cpu().numpy()).astype(np.uint8)
+        for idxs, batch in bucket_batches(prepped, self.cfg.batch_size):
+            preds = self.forward(torch.from_numpy(batch).to(self.device, self.dtype))
+            for row, i in enumerate(idxs):
+                results[i] = restore_mask(preds[row], prepped[i].shape, images[i].shape[:2])
         return results  # type: ignore[return-value]

@@ -17,7 +17,7 @@ from egm_unet_torch.ops.resize import (upsample2x_bilinear_align_corners,
                                        upsample2x_taps)
 
 RESIDENT_LIMIT = conv3x3.PAIR_RESIDENT_LIMIT  # two blocks per SM
-SMEM_LIMIT = conv3x3.PAIR_SMEM_LIMIT          # what one block may opt into
+SMEM_LIMIT = conv3x3.SMEM_LIMIT               # what one block may opt into
 
 
 def _cdiv(a, b):

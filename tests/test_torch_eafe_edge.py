@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from egm_unet_torch.nn import layers
 from egm_unet_torch.nn.layers import EdgeAwareFeatureEnhancer
-from egm_unet_torch.ops.cuda import edge, launch_counts, reset_launch_counts
+from egm_unet_torch.ops.cuda import build, edge, launch_counts, reset_launch_counts
 from egm_unet_torch.ops.pooling import avg_pool2d
 
 # the eight EAFE inputs of the EGM-UNet forward at the serving bucket, per
@@ -196,10 +196,10 @@ def test_wrapper_refuses_autograd():
 
 
 def test_launch_counter_resets_by_name():
-    edge.launches = 5
+    build.LAUNCHES["eafe_edge"] = 5
     assert launch_counts()["eafe_edge"] == 5
     reset_launch_counts()
-    assert edge.launches == 0 and not any(launch_counts().values())
+    assert build.LAUNCHES["eafe_edge"] == 0 and not any(launch_counts().values())
 
 
 def _seeded(module, seed):

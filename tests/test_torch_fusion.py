@@ -28,12 +28,12 @@ from egm_unet_tpu.ops import resize as jresize
 
 from egm_unet_torch import metrics
 from egm_unet_torch.cli import eval_clipseg, predict_clipseg
-from egm_unet_torch.cli.predict import bucket_pad
 from egm_unet_torch.data import (IMAGENET_MEAN, IMAGENET_STD, DriveDataset,
                                  EvalTransform, SyntheticTPDataset)
 from egm_unet_torch.engine import fusion
 from egm_unet_torch.models import clipseg, create_model
 from egm_unet_torch.models.clip.model import CLIPConfig
+from egm_unet_torch.serving import bucket_batches
 from egm_unet_torch.utils import load_flax_variables
 
 from tests.torch_port_util import random_variables, to_torch
@@ -126,8 +126,9 @@ def test_host_data_pipeline_matches_jax(tmp_path):
     assert EvalTransform(48)(img, None)[1] is None
     np.testing.assert_array_equal(IMAGENET_MEAN, jtf.IMAGENET_MEAN)
     np.testing.assert_array_equal(IMAGENET_STD, jtf.IMAGENET_STD)
-    np.testing.assert_array_equal(bucket_pad(got_i), jbucket_pad(got_i))
-    assert bucket_pad(got_i).shape == (64, 64, 3)
+    [(idxs, packed)] = bucket_batches([got_i], 1)
+    assert idxs == [0] and packed.shape == (1, 64, 64, 3)
+    np.testing.assert_array_equal(packed[0], jbucket_pad(got_i))
 
     from PIL import Image
     root = tmp_path / "TP-Dataset"
@@ -196,6 +197,9 @@ def test_slice_as_a_whole_matches_jax():
     cl_all = np.asarray(cl_flat)[..., 0].reshape(4, 2, clip_size, clip_size).transpose(
         0, 2, 3, 1)
     batch = np.stack([jbucket_pad(im) for im in img565s])
+    [(idxs, packed)] = bucket_batches(img565s, 4)  # what fused_masks uploads
+    assert idxs == [0, 1, 2, 3]
+    np.testing.assert_array_equal(packed, batch)
     ul_all = np.asarray(jax.jit(jfolded.apply)(jfold(uv), jnp.asarray(batch))["out"])
     ref = []
     for i, raw in enumerate(raws):

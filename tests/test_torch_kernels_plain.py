@@ -19,8 +19,8 @@ from egm_unet_tpu.ops.pallas.conv3x3 import conv3x3_gemm as jconv3x3
 from egm_unet_tpu.ops.pallas.mca import mca_fused as jmca
 from egm_unet_tpu.ops.pallas.upconv import up_concat_conv as jupconv
 
-from egm_unet_torch.ops.cuda import (conv3x3, launch_counts, mca, reset_launch_counts,
-                                     resize2x, upconv)
+from egm_unet_torch.ops.cuda import (build, conv3x3, launch_counts, mca,
+                                     reset_launch_counts, resize2x, upconv)
 
 from tests.torch_port_util import assert_close, to_torch
 
@@ -148,12 +148,20 @@ def test_pair_and_upsample_wrappers_take_the_plain_path_on_cpu():
 
 
 def test_launch_counters_reset_by_name():
-    conv3x3.pair_launches, resize2x.launches, conv3x3.launches = 3, 2, 1
+    build.LAUNCHES.update(conv3x3_pair_gemm=3, upsample2x_fused=2, conv3x3_gemm=1)
     counts = launch_counts()
     assert (counts["conv3x3_pair_gemm"], counts["upsample2x_fused"],
             counts["conv3x3_gemm"]) == (3, 2, 1)
     reset_launch_counts()
     assert not any(launch_counts().values())
+
+
+def test_kernel_set_comes_from_csrc():
+    assert build.KERNELS == ("conv3x3", "conv3x3_pair", "csa_attention", "eafe_edge",
+                             "mca_fused", "mca_gates", "up_concat_conv", "upsample2x")
+    assert set(launch_counts()) == {
+        "conv3x3_gemm", "conv3x3_pair_gemm", "mca_fused", "up_concat_conv",
+        "upsample2x_fused", "csa_attention", "mca_gates", "eafe_edge"}
 
 
 def test_pair_and_upsample_wrappers_reject_bad_arguments():
@@ -216,7 +224,7 @@ def test_pair_tile_fits_shared_memory(c, cm, co, itemsize, tile):
     assert conv3x3.pair_tile(c, cm, co, itemsize) == tile
     th, tw, bn1, bn2, resident = tile
     need = conv3x3.pair_smem_bytes(tile, c, cm, co, itemsize)
-    assert need <= (conv3x3.PAIR_RESIDENT_LIMIT if resident else conv3x3.PAIR_SMEM_LIMIT)
+    assert need <= (conv3x3.PAIR_RESIDENT_LIMIT if resident else conv3x3.SMEM_LIMIT)
     halo = (th + 2) * (tw + 2)
     if itemsize == 4:  # float32 staging of a K chunk of 16 + the intermediate
         assert need == 4 * 16 * (68 + bn1) + halo * cm * 4

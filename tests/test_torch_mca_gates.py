@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from egm_unet_torch.nn.attention import MCALayer, mca_kernel_size
-from egm_unet_torch.ops.cuda import gates, launch_counts, mca, reset_launch_counts
+from egm_unet_torch.ops.cuda import build, gates, launch_counts, mca, reset_launch_counts
 
 # the four MCALayer inputs of the EGM-UNet forward at the serving bucket
 PATH = [(288, 384, 64), (144, 192, 128), (72, 96, 256), (36, 48, 256)]
@@ -136,10 +136,10 @@ def test_wrapper_refuses_autograd():
 
 
 def test_launch_counter_resets_by_name():
-    gates.launches = 5
+    build.LAUNCHES["mca_gates"] = 5
     assert launch_counts()["mca_gates"] == 5
     reset_launch_counts()
-    assert gates.launches == 0 and not any(launch_counts().values())
+    assert build.LAUNCHES["mca_gates"] == 0 and not any(launch_counts().values())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -3,11 +3,13 @@
 96 px): the per-epoch printout and results-txt blocks in the JAX package's
 format, checkpoints at the reference's cadence, ``--resume`` continuing the
 step count and the learning rate, and the checkpoint served folded by
-``cli/predict.py --weights`` and ``serving.Predictor.from_checkpoint``; the
+``cli/predict.py --weights``, ``serving.Predictor.from_checkpoint`` and the
+fusion CLIs' ``--unet-weights``; the
 JAX CLI's flags whose modules are not ported exit non-zero (the device
 dataset's flags only beside --steps-per-dispatch > 1), and without
 ``--device`` the CLI refuses a machine with no GPU."""
 
+import argparse
 import contextlib
 import io
 import os
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from egm_unet_tpu.utils.logging import ResultsWriter as JResultsWriter
+from egm_unet_torch.cli import eval_clipseg
 from egm_unet_torch.cli import predict as predict_cli
 from egm_unet_torch.cli import train as train_cli
 from egm_unet_torch.engine import warmup_poly_schedule
@@ -127,6 +130,24 @@ def test_predict_cli_serves_the_folded_checkpoint(trained, tmp_path):
         ref = train_graph.eval()(x)["out"]
         got = pred.model(x)["out"]
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_fusion_unet_reads_the_trainer_directory(trained):
+    """``--unet-weights`` of the fusion CLIs on a trainer directory loads
+    the state that ``Predictor.from_checkpoint`` folds from it."""
+    root, _, _ = trained
+    save = str(root / "save")
+    args = argparse.Namespace(model="egm_unet", base_c=8, unet_weights=save)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        unet = eval_clipseg.build_unet(args, torch.device("cpu"))
+    assert f"loaded UNet weights from {save}" in out.getvalue()
+    pred = Predictor.from_checkpoint(save, PredictorConfig(base_c=8, dtype="float32"),
+                                     device="cpu")
+    want = pred.model.state_dict()
+    got = unet.state_dict()
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
 
 
 @pytest.mark.parametrize("flag,item", [(["--device-aug"], "item 6"),

@@ -9,7 +9,11 @@ shapes the main paths give it, and drives the main paths at full width:
 - fusion: 16 images and two text prompts through the text-prompted pipeline
   of ``cli/predict_clipseg.py`` (CLIPSeg rd64 over ViT-B/16 at 352 px with the
   248-token Long-CLIP text tower, batch 32, plus EGM-UNet at 565 px, batch 16,
-  both bf16, fused as ``clip + 0.5 * unet``); then the float32 CLIPSeg
+  both bf16, fused as ``clip + 0.5 * unet``); the fusion's uint8 wire
+  (``fusion_wire``: the CLIPSeg rows and UNet batches that ``run_branches``
+  normalises, repeats and pads on the card, bit for bit the host's float32
+  ``preprocess``, ``np.repeat`` and ``bucket_batches``, every byte value
+  in both branches); then the float32 CLIPSeg
   forward at batch 32 that ``cli/eval_clipseg.py`` and
   ``cli/predict_clipseg.py`` run (``clipseg_f32``: ms per batch, img/s, K6's
   10 launches, a profile with K6's share);
@@ -158,7 +162,7 @@ from egm_unet_torch.cli import train as train_cli
 from egm_unet_torch.cli import train_clipseg as train_clipseg_cli
 from egm_unet_torch.cli import train_longclip as train_longclip_cli
 from egm_unet_torch.cli.eval_clipseg import tiny_clip_config
-from egm_unet_torch.cli.eval_clipseg import fused_masks
+from egm_unet_torch.cli.eval_clipseg import fused_masks, preprocess, resize_frames, run_branches
 from egm_unet_torch.data.device_aug import (augment_with_params, draw_params,
                                             source_coords, to_unit)
 from egm_unet_torch.data.device_cache import (DeviceDatasetCache, epoch_generator,
@@ -166,8 +170,9 @@ from egm_unet_torch.data.device_cache import (DeviceDatasetCache, epoch_generato
 from egm_unet_torch.data.loader import (BatchLoader, DevicePrefetcher,
                                         narrow_for_transfer, to_device)
 from egm_unet_torch.data.synthetic import SyntheticTPDataset, synthetic_tp_sample
-from egm_unet_torch.data.transforms import (TP_MEAN, TP_STD, TrainTransform,
-                                            normalize, resize_short_side)
+from egm_unet_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD, TP_MEAN, TP_STD,
+                                            TrainTransform, device_normalize, normalize,
+                                            resize_short_side)
 from egm_unet_torch.engine import (create_train_state, make_train_step, make_train_step_accum,
                                    warmup_poly_schedule)
 from egm_unet_torch.engine.clipseg_train import create_clipseg_state, make_clipseg_train_step
@@ -191,7 +196,7 @@ from egm_unet_torch.ops.quant import QUANT_MODES, SHIP_QSTORE_SITES
 from egm_unet_torch.parallel import (all_reduce_grads, gather_clip_state, launch,
                                      shard_batch, shard_batch_spatial, shard_clip,
                                      use_data_group, use_spatial_group)
-from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_of
+from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_batches, bucket_of
 from egm_unet_torch.utils.checkpoint import (best_epoch, folded_state_dict, load_payload,
                                              saved_epochs)
 from egm_unet_torch.utils.convert import load_clip_checkpoint, load_converted_clip
@@ -1378,6 +1383,8 @@ def phase_fusion(unet, dev) -> dict:
         check(mask.dtype == np.uint8 and set(np.unique(mask)) <= {0, 255},
               "mask values not in {0, 255}")
 
+    wire = phase_fusion_wire(clipseg, unet, cond)
+
     gen = torch.Generator().manual_seed(SEED + 2)
     x = torch.randn(CLIP_BATCH, CLIP_SIZE, CLIP_SIZE, 3, generator=gen).cuda()
     conds = cond.repeat(CLIP_BATCH // 2, 1)
@@ -1395,13 +1402,85 @@ def phase_fusion(unet, dev) -> dict:
            "clipseg_ms_per_batch": ms, "clipseg_img_per_s": CLIP_BATCH / ms * 1e3,
            "text_tower_ms": text_ms, "pipeline_wall_s": wall,
            "model_build_s": build_s, "card": dev["nvidia_smi"],
-           "foreground_share": float(np.mean([(mk > 0).mean() for mk in masks]))}
+           "foreground_share": float(np.mean([(mk > 0).mean() for mk in masks])),
+           "wire": wire}
     emit(rec)
     phase_profile("clipseg_profile", lambda: clipseg(x, conds), "clipseg_profile.txt",
                   {"csa_attention": "csa_mma_kernel",
                    # PyTorch's own copies and dtype casts; the blocks add none
                    # for q, k, v (they hand views to the kernel)
                    "copies_and_casts": "copy_kernel"})
+    return rec
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def phase_fusion_wire(clipseg, unet, cond) -> dict:
+    """The fusion's uint8 wire on the card: the inputs of every CLIPSeg and
+    UNet forward of ``run_branches`` (kept by forward pre-hooks) against the
+    float32 wire the host built before it (``preprocess``, the CLIP inputs
+    ``np.repeat``-ed over the prompts and zero-padded to the batch, the
+    prompt rows tiled, the float32 ``bucket_batches`` cast to the UNet's
+    dtype on the card), bit for bit.  Three frames: a 565x752 ramp (the
+    UNet's resize keeps it: every byte value in each channel), a 352x352
+    ramp (the CLIP resize keeps it), a synthetic 480x640 frame; two buckets,
+    part-filled UNet batches, one short CLIP chunk.  CUDA divides by a Python
+    number as a product by the reciprocal, which no CPU test sees; the
+    record counts the byte values that route puts off the host's bits."""
+    v = np.arange(256, dtype=np.uint8)
+    ramp = lambda h, w: np.resize(np.stack([v, v[::-1], np.roll(v, 85)], -1),  # noqa: E731
+                                  (h * w, 3)).reshape(h, w, 3)
+    raws = [ramp(565, 752), ramp(CLIP_SIZE, CLIP_SIZE), synthetic_tp_sample(7, 480, 640)[0]]
+    u565s, u352s = resize_frames(raws, BASE_SIZE, CLIP_SIZE)
+    check(len(np.unique(u565s[0])) == 256 and len(np.unique(u352s[1])) == 256,
+          "the ramps lost byte values in their resizes")
+    seen = {"clip": [], "unet": []}
+    hooks = [m.register_forward_pre_hook(
+        lambda _m, args, k=k: seen[k].append([a.clone() for a in args]))
+        for k, m in (("clip", clipseg), ("unet", unet))]
+    try:
+        info = {}
+        run_branches(clipseg, unet, cond, u565s, u352s, clip_batch=CLIP_BATCH,
+                     unet_batch=UNET_BATCH, device="cuda", info=info)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+
+    f565s, f352s = preprocess(raws, BASE_SIZE, CLIP_SIZE)
+    pad = lambda a: np.concatenate([a, np.zeros((CLIP_BATCH - len(a),) + a.shape[1:],  # noqa: E731
+                                                a.dtype)])
+    clip_in = [pad(np.repeat(np.stack(f352s), 2, axis=0)),
+               pad(np.tile(cond.float().cpu().numpy(), (len(raws), 1)))]
+    unet_dtype = next(unet.parameters()).dtype
+    unet_in = [torch.from_numpy(b).cuda().to(unet_dtype)
+               for _, b in bucket_batches(f565s, UNET_BATCH)]
+    check(len(seen["clip"]) == 1 and len(seen["unet"]) == len(unet_in) == 2,
+          f"forwards {info}, {len(unet_in)} host batches")
+    off = {"clip_rows": int((_bits(seen["clip"][0][0]).cpu()
+                             != _bits(torch.from_numpy(clip_in[0]))).sum()),
+           "prompt_rows": int((_bits(seen["clip"][0][1].float()).cpu()
+                               != _bits(torch.from_numpy(clip_in[1]))).sum()),
+           "unet_batches": sum(int((_bits(g[0]) != _bits(w)).sum())
+                               for g, w in zip(seen["unet"], unet_in))}
+    check(not any(off.values()), f"the uint8 wire differs from the float32 wire: {off}")
+
+    # the reciprocal route, for the record: how far CUDA's x / 255.0 (a
+    # Python number) is from the host's division
+    x = torch.arange(256, dtype=torch.float32, device="cuda")
+    recip_off = int((_bits(x / 255.0).cpu()
+                     != _bits(torch.from_numpy(np.arange(256, dtype=np.float32) / 255.0))).sum())
+    exact = all(torch.equal(_bits(device_normalize(torch.from_numpy(ramp(16, 16)).cuda(), m, s)).cpu(),
+                            _bits(torch.from_numpy(normalize(ramp(16, 16), m, s))))
+                for m, s in ((TP_MEAN, TP_STD), (IMAGENET_MEAN, IMAGENET_STD)))
+    check(exact, "device_normalize differs from normalize on the 256 byte values")
+    rec = {"phase": "fusion_wire", "frames": [list(r.shape[:2]) for r in raws],
+           "unet_dtype": str(unet_dtype), "elements_off": off,
+           "byte_values": [len(np.unique(u565s[0])), len(np.unique(u352s[1]))],
+           "reciprocal_route_values_off": recip_off}
+    emit(rec)
     return rec
 
 

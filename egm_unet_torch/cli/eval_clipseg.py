@@ -10,8 +10,12 @@ Pipeline per validation image:
 4. masks re-rendered with the best alpha (0 -> 0, 1 -> 255).
 
 Runs in float32 on the current CUDA device unless ``--device cpu`` is given.  The two
-branches and the fused prediction are functions (``preprocess``,
-``run_branches``, ``fused_masks``) that ``predict_clipseg`` shares.
+branches and the fused prediction are functions (``resize_frames``,
+``run_branches``, ``fused_masks``) that ``predict_clipseg`` shares.  The host
+does only the PIL resizes and sends each resized frame to the device once,
+as uint8; the normalisation, the repeat over the prompts and the bucket and
+chunk padding run there, bit for bit the host's float32 pipeline
+(``preprocess``).
 
 Their stages are spans and counters of ``utils/profiling.py`` (recorded only
 under a profiler or ``profiling.recording()``): ``fusion`` (one
@@ -36,8 +40,9 @@ import numpy as np
 import torch
 
 from egm_unet_torch.data import DriveDataset, SyntheticTPDataset
-from egm_unet_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
-                                            EvalTransform, normalize)
+from egm_unet_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD, TP_MEAN,
+                                            TP_STD, EvalTransform, device_normalize,
+                                            normalize)
 from egm_unet_torch.device import resolve_device
 from egm_unet_torch.engine.fusion import fuse_logits, save_alpha, search_best_alpha
 from egm_unet_torch.models import create_model
@@ -46,7 +51,7 @@ from egm_unet_torch.models.clip.tokenizer import tokenize
 from egm_unet_torch.models.clipseg import CLIPDensePredT
 from egm_unet_torch.models.registry import init_weights
 from egm_unet_torch.ops.resize import resize_bilinear, resize_nearest
-from egm_unet_torch.serving import bucket_batches, unet_state
+from egm_unet_torch.serving import bucket_batches, unet_state, zero_padding
 from egm_unet_torch.utils import profiling
 from egm_unet_torch.utils.convert import (clipseg_decoder_from_torch,
                                           load_clip_checkpoint, merge_params)
@@ -90,10 +95,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+def to_device(a: np.ndarray, device) -> torch.Tensor:
     """A host array on ``device``; its bytes counted as ``fusion.h2d_bytes``."""
     profiling.count("fusion.h2d_bytes", a.nbytes)
-    return torch.from_numpy(a).to(device, dtype)
+    return torch.from_numpy(a).to(device)
 
 
 def stage_table(tab: dict, n_images: int) -> str:
@@ -110,19 +115,18 @@ def stage_table(tab: dict, n_images: int) -> str:
     return "\n".join(lines)
 
 
-def run_in_chunks(forward, inputs: Sequence[np.ndarray], batch_size: int,
-                  device) -> torch.Tensor:
-    """Run [N, ...] host arrays through ``forward`` in fixed-size chunks; the
-    last chunk is zero-padded and the outputs of its padding rows dropped."""
+def run_in_chunks(forward, inputs: Sequence[torch.Tensor], batch_size: int) -> torch.Tensor:
+    """Run [N, ...] tensors through ``forward`` in fixed-size chunks; the
+    last chunk is padded with zero rows on the tensors' device and the
+    outputs of its padding rows dropped."""
     n = inputs[0].shape[0]
     outs = []
     for s in range(0, n, batch_size):
-        chunk = [np.asarray(a[s:s + batch_size]) for a in inputs]
+        chunk = [a[s:s + batch_size] for a in inputs]
         pad = batch_size - chunk[0].shape[0]
         if pad:
-            chunk = [np.concatenate(
-                [c, np.zeros((pad,) + c.shape[1:], c.dtype)]) for c in chunk]
-        out = forward(*[to_device(c, device) for c in chunk])
+            chunk = [torch.cat([c, c.new_zeros((pad,) + c.shape[1:])]) for c in chunk]
+        out = forward(*chunk)
         outs.append(out[: batch_size - pad] if pad else out)
     return torch.cat(outs, dim=0)
 
@@ -189,31 +193,40 @@ def prompt_conditionals(clipseg: CLIPDensePredT, prompts, device,
                        generator=torch.Generator().manual_seed(1)).to(device)
 
 
-def preprocess(raws: Sequence[np.ndarray], base_size: int, clip_size: int):
-    """Host preprocessing of both branches: ``(img565s, img352s)``, the
-    short-side resize with TP statistics and the square CLIP resize with
-    ImageNet statistics."""
+def resize_frames(raws: Sequence[np.ndarray], base_size: int, clip_size: int):
+    """The host half of both branches' preprocessing, PIL only:
+    ``(img565s, img352s)``, uint8 HWC, the short-side resize to
+    ``base_size`` and the square BILINEAR resize to ``clip_size``."""
     from PIL import Image
 
-    tf = EvalTransform(base_size)
+    tf = EvalTransform(base_size, wire_uint8=True)
     img565s, img352s = [], []
     with profiling.span("fusion.preprocess"):
         for raw in raws:
             img565s.append(tf(raw, None)[0])
-            img352s.append(normalize(
-                np.asarray(Image.fromarray(raw).resize((clip_size, clip_size),
-                                                       Image.BILINEAR)),
-                IMAGENET_MEAN, IMAGENET_STD))
+            img352s.append(np.asarray(Image.fromarray(raw).resize(
+                (clip_size, clip_size), Image.BILINEAR)))
     return img565s, img352s
+
+
+def preprocess(raws: Sequence[np.ndarray], base_size: int, clip_size: int):
+    """Both branches' preprocessing on the host in float32, the reference's:
+    ``resize_frames``, then ``normalize`` with TP statistics and with
+    ImageNet statistics.  ``run_branches`` computes the same numbers on the
+    device from ``resize_frames``."""
+    img565s, img352s = resize_frames(raws, base_size, clip_size)
+    return ([normalize(im) for im in img565s],
+            [normalize(im, IMAGENET_MEAN, IMAGENET_STD) for im in img352s])
 
 
 @torch.no_grad()
 def run_branches(clipseg, unet, cond: torch.Tensor, img565s, img352s, *,
                  clip_batch: int, unet_batch: int, device, info=None):
-    """Both branches on the device.  Returns ``(cl, ul)``: ``cl`` float32
-    [N, S, S, P] CLIPSeg logits, one channel per prompt; ``ul`` a list of
-    float32 [h, w, C] UNet logits at each image's resized shape.  ``info``
-    (a dict) receives the numbers of forwards run."""
+    """Both branches on the device, from ``resize_frames``'s uint8 frames.
+    Returns ``(cl, ul)``: ``cl`` float32 [N, S, S, P] CLIPSeg logits, one
+    channel per prompt; ``ul`` a list of float32 [h, w, C] UNet logits at
+    each image's resized shape.  ``info`` (a dict) receives the numbers of
+    forwards run."""
     n = len(img565s)
     n_prompts = cond.shape[0]
     size = img352s[0].shape[0]
@@ -224,21 +237,26 @@ def run_branches(clipseg, unet, cond: torch.Tensor, img565s, img352s, *,
         forwards["clipseg_forwards"] += 1
         return clipseg(x, c)[0]
 
-    # CLIPSeg: image-major repeat over the prompts, ceil(N * P / clip_batch)
-    # forwards
+    # CLIPSeg: each frame sent once, normalised and repeated image-major over
+    # the prompts on the device, ceil(N * P / clip_batch) forwards
     with profiling.span("fusion.clip.pack"):
-        rep = np.repeat(np.stack(img352s), n_prompts, axis=0)
-        conds = np.tile(cond.float().cpu().numpy(), (n, 1))
+        x = device_normalize(to_device(np.stack(img352s), device),
+                             IMAGENET_MEAN, IMAGENET_STD)
+        rows = x.repeat_interleave(n_prompts, dim=0)
+        conds = cond.to(device, torch.float32).repeat(n, 1)
     with profiling.span("fusion.clip.forward"):
-        cl_flat = run_in_chunks(clipseg_forward, (rep, conds), clip_batch, device)
+        cl_flat = run_in_chunks(clipseg_forward, (rows, conds), clip_batch)
     cl = cl_flat[..., 0].reshape(n, n_prompts, size, size).permute(0, 2, 3, 1)
 
-    # UNet: 64-px shape buckets x fixed batches whose free slots hold zeros
+    # UNet: 64-px shape buckets x fixed uint8 batches, normalised on the
+    # device with zeros outside the images and in the free slots
     ul: List[torch.Tensor] = [None] * n  # type: ignore[list-item]
     for idxs, batch in bucket_batches(img565s, unet_batch,
                                       lambda: profiling.span("fusion.unet.pack")):
         with profiling.span("fusion.unet.forward"):
-            out = unet(to_device(batch, device, unet_dtype))["out"]
+            x = device_normalize(to_device(batch, device), TP_MEAN, TP_STD, unet_dtype)
+            x = zero_padding(x, [img565s[i].shape[:2] for i in idxs])
+            out = unet(x)["out"]
         forwards["unet_forwards"] += 1
         for row, i in enumerate(idxs):
             h, w = img565s[i].shape[:2]
@@ -255,14 +273,14 @@ def fused_masks(clipseg, unet, cond: torch.Tensor, raws: Sequence[np.ndarray],
                 alpha: float, *, base_size: int = 565, clip_size: int = 352,
                 clip_batch: int = 32, unet_batch: int = 16, device="cuda",
                 info=None) -> List[np.ndarray]:
-    """The fusion prediction for raw uint8 HWC images: host preprocessing ->
+    """The fusion prediction for raw uint8 HWC images: PIL resizes ->
     CLIPSeg in chunks of ``clip_batch`` -> UNet by 64-px bucket in chunks of
     ``unet_batch`` -> CLIPSeg logits bilinearly resized to the UNet grid ->
     ``clip + alpha * unet`` -> argmax -> nearest (PIL convention) resize to
     the raw size.  Returns uint8 masks with values 0 and 255."""
     with profiling.span("fusion"):
         profiling.count("fusion.images", len(raws))
-        img565s, img352s = preprocess(raws, base_size, clip_size)
+        img565s, img352s = resize_frames(raws, base_size, clip_size)
         cl_all, ul = run_branches(clipseg, unet, cond, img565s, img352s,
                                   clip_batch=clip_batch, unet_batch=unet_batch,
                                   device=device, info=info)
@@ -297,7 +315,7 @@ def main(argv=None):
         raws.append(raw)
         targets.append(target.astype(np.int32))
     with (profiling.trace(args.trace_dir) if args.trace_dir else contextlib.nullcontext()):
-        img565s, img352s = preprocess(raws, args.base_size, args.clip_size)
+        img565s, img352s = resize_frames(raws, args.base_size, args.clip_size)
 
         for pnum in range(max(1, args.timed_passes)):
             t0 = time.perf_counter()

@@ -1,5 +1,6 @@
 """Paired image/mask transforms, host-side numpy and PIL (port of
-``egm_unet_tpu/data/transforms.py``).
+``egm_unet_tpu/data/transforms.py``), and ``device_normalize``, the
+normalisation of raw uint8 images on their device.
 
 - train: RandomResize (short side in [0.5, 1.2] x 565) -> flips p=0.5 ->
   RandomCrop(480, pad 0) -> normalize; every draw from one numpy generator
@@ -11,6 +12,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # TP-Dataset normalization statistics
 TP_MEAN = np.array([0.709, 0.381, 0.224], np.float32)
@@ -93,10 +95,26 @@ def normalize(image_u8: np.ndarray, mean=TP_MEAN, std=TP_STD) -> np.ndarray:
     return (x - mean) / std
 
 
+def device_normalize(images_u8: torch.Tensor, mean=TP_MEAN, std=TP_STD,
+                     dtype=None) -> torch.Tensor:
+    """``normalize`` on the images' device: raw uint8 ``[..., 3]`` images ->
+    ``(x / 255 - mean) / std`` in float32, bit for bit the host's, then
+    ``dtype`` if given.  Every divisor is a float32 tensor on that device:
+    CUDA divides by a Python number, or by a 0-dim CPU tensor, as a product
+    by its float32 reciprocal, one ulp off the host on 126 of the 256 byte
+    values."""
+    dev = images_u8.device
+    stats = torch.tensor(np.stack([mean, std]), dtype=torch.float32, device=dev)
+    x = images_u8.to(torch.float32, copy=True)
+    x.div_(torch.full((), 255.0, dtype=torch.float32, device=dev))
+    x.sub_(stats[0]).div_(stats[1])
+    return x if dtype is None else x.to(dtype)
+
+
 class TrainTransform:
     """The reference's train preset.  ``wire_uint8``: return the raw uint8
     crop and let the train step normalise on the device
-    (``engine.train._device_normalize``), a quarter of the bytes to copy."""
+    (``device_normalize``), a quarter of the bytes to copy."""
 
     def __init__(self, base_size=565, crop_size=480, hflip_prob=0.5,
                  vflip_prob=0.5, mean=TP_MEAN, std=TP_STD, seed=0,

@@ -46,24 +46,14 @@ import torch
 
 from egm_unet_torch import losses as L
 from egm_unet_torch import metrics as M
+from egm_unet_torch.data.transforms import device_normalize
 from egm_unet_torch.parallel.mesh import (DataGroup, all_reduce_grads, global_height,
                                           use_data_group, use_spatial_group)
 
 
-def _device_normalize(images: torch.Tensor, normalize, input_dtype):
-    """Raw uint8 images -> ``(x / 255 - mean) / std`` in float32 on the
-    device, the same numbers as the host's ``transforms.normalize``, then
-    ``input_dtype`` if given."""
-    mean, std = normalize
-    x = images.float() / 255.0
-    x = ((x - torch.as_tensor(mean, dtype=torch.float32, device=x.device))
-         / torch.as_tensor(std, dtype=torch.float32, device=x.device))
-    return x.to(input_dtype) if input_dtype is not None else x
-
-
 def _inputs(images, normalize, input_dtype):
     if normalize is not None:
-        return _device_normalize(images, normalize, input_dtype)
+        return device_normalize(images, *normalize, dtype=input_dtype)
     return images.to(input_dtype) if input_dtype is not None else images
 
 

@@ -49,11 +49,13 @@ def bucket_of(hw) -> tuple:
 def bucket_batches(images: Sequence[np.ndarray], batch_size: int,
                    pack: Callable[[], Any] = contextlib.nullcontext
                    ) -> Iterator[Tuple[List[int], np.ndarray]]:
-    """Preprocessed HWC float32 images grouped by bucket (in first-seen
-    order), in fixed batches of ``batch_size``: yields ``(idxs, batch)``,
-    image ``idxs[r]`` at the top left of row r of the float32 zero batch
-    [batch_size, bucket H, bucket W, 3].  ``pack()`` is entered around the
-    grouping and around each fill (a profiling span, say)."""
+    """Preprocessed HWC images grouped by bucket (in first-seen order), in
+    fixed batches of ``batch_size``: yields ``(idxs, batch)``, image
+    ``idxs[r]`` at the top left of row r of the zero batch [batch_size,
+    bucket H, bucket W, 3] in the images' dtype (float32 normalised images,
+    or the raw uint8 ones that ``zero_padding`` completes on the device).
+    ``pack()`` is entered around the grouping and around each fill (a
+    profiling span, say)."""
     buckets = {}
     with pack():
         for i, im in enumerate(images):
@@ -62,11 +64,22 @@ def bucket_batches(images: Sequence[np.ndarray], batch_size: int,
         for start in range(0, len(idxs), batch_size):
             chunk = idxs[start:start + batch_size]
             with pack():
-                batch = np.zeros((batch_size, bh, bw, 3), np.float32)
+                batch = np.zeros((batch_size, bh, bw, 3), images[chunk[0]].dtype)
                 for row, i in enumerate(chunk):
                     im = images[i]
                     batch[row, :im.shape[0], :im.shape[1]] = im
             yield chunk, batch
+
+
+def zero_padding(batch: torch.Tensor, hws: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """A ``bucket_batches`` batch normalised on the device, with every pixel
+    of row r outside its image's ``hws[r]`` and every row past ``len(hws)``
+    set to 0 in place, as the float32 batch holds them there."""
+    for row, (h, w) in enumerate(hws):
+        batch[row, h:] = 0
+        batch[row, :h, w:] = 0
+    batch[len(hws):] = 0
+    return batch
 
 
 def restore_mask(pred: torch.Tensor, hw, size_hw) -> np.ndarray:

@@ -30,10 +30,12 @@ from egm_unet_torch import metrics
 from egm_unet_torch.cli import eval_clipseg, predict_clipseg
 from egm_unet_torch.data import (IMAGENET_MEAN, IMAGENET_STD, DriveDataset,
                                  EvalTransform, SyntheticTPDataset)
+from egm_unet_torch.data.transforms import TP_MEAN, TP_STD, device_normalize, normalize
 from egm_unet_torch.engine import fusion
 from egm_unet_torch.models import clipseg, create_model
 from egm_unet_torch.models.clip.model import CLIPConfig
-from egm_unet_torch.serving import bucket_batches
+from egm_unet_torch.models.registry import init_weights
+from egm_unet_torch.serving import bucket_batches, zero_padding
 from egm_unet_torch.utils import load_flax_variables
 
 from tests.torch_port_util import random_variables, to_torch
@@ -151,15 +153,98 @@ def test_run_in_chunks_pads_and_drops():
     calls = []
 
     def forward(x, c):
-        calls.append(tuple(x.shape))
+        calls.append((x.clone(), c.clone()))
         return x.sum(dim=(1, 2, 3)) + c.sum(dim=1)
 
     n = 13
-    xs = np.arange(n * 2 * 2 * 3, dtype=np.float32).reshape(n, 2, 2, 3)
-    cs = np.ones((n, 4), np.float32)
-    out = eval_clipseg.run_in_chunks(forward, (xs, cs), 4, "cpu")
-    assert calls == [(4, 2, 2, 3)] * 4  # ceil(13 / 4) fixed-size chunks
-    np.testing.assert_allclose(out.numpy(), xs.sum(axis=(1, 2, 3)) + 4.0)
+    xs = torch.arange(n * 2 * 2 * 3, dtype=torch.float32).reshape(n, 2, 2, 3)
+    cs = torch.ones((n, 4))
+    out = eval_clipseg.run_in_chunks(forward, (xs, cs), 4)
+    # ceil(13 / 4) fixed-size chunks, the last one's three padding rows zero
+    assert [tuple(x.shape) for x, _ in calls] == [(4, 2, 2, 3)] * 4
+    last_x, last_c = calls[-1]
+    assert torch.equal(last_x[:1], xs[12:]) and not last_x[1:].any() and not last_c[1:].any()
+    np.testing.assert_allclose(out.numpy(), xs.sum(dim=(1, 2, 3)).numpy() + 4.0)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)).numpy()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("stats", ["tp", "imagenet"])
+def test_device_normalize_matches_host_bit_for_bit(stats, dtype):
+    """All 256 byte values in every channel, through ``bucket_batches`` on
+    uint8 frames, ``device_normalize`` and ``zero_padding``, against the
+    host's ``normalize`` and the float32 ``bucket_batches``: the same bits,
+    the padding and the free slot +0.0, in float32 and after the cast to
+    bfloat16.  (<1 s)"""
+    mean, std = {"tp": (TP_MEAN, TP_STD), "imagenet": (IMAGENET_MEAN, IMAGENET_STD)}[stats]
+    v = np.arange(256, dtype=np.uint8)
+    frames = [np.stack([v, v[::-1], np.roll(v, 85)], -1).reshape(16, 16, 3),
+              np.stack([np.resize(np.roll(v, 3), 640)] * 3, -1).reshape(8, 80, 3)]
+    got = list(bucket_batches(frames, 3))
+    want = list(bucket_batches([normalize(f, mean, std) for f in frames], 3))
+    assert [i for i, _ in got] == [i for i, _ in want] == [[0], [1]]
+    for (idxs, u8), (_, f32) in zip(got, want):
+        assert u8.dtype == np.uint8 and f32.dtype == np.float32
+        x = device_normalize(torch.from_numpy(u8), mean, std, dtype)
+        x = zero_padding(x, [frames[i].shape[:2] for i in idxs])
+        assert x.dtype == dtype and x.shape == f32.shape
+        np.testing.assert_array_equal(_bits(x), _bits(torch.from_numpy(f32).to(dtype)))
+        assert not _bits(x)[1:].any()  # free slots hold +0.0
+    full = device_normalize(torch.from_numpy(frames[0]), mean, std)
+    np.testing.assert_array_equal(_bits(full), normalize(frames[0], mean, std).view(np.int32))
+
+
+def test_run_branches_uint8_wire_matches_float_wire():
+    """``run_branches`` on ``resize_frames``'s uint8 frames against the
+    float32 wire (host ``preprocess``, ``np.repeat`` of the CLIP inputs,
+    tiled prompt rows, float32 ``bucket_batches``) on the same models: the
+    same logits, bit for bit.  Three frames of two shapes at base size 48
+    (buckets 64x128 and 128x64, the second part-filled at UNet batch 2),
+    clip size 64, 6 CLIPSeg rows in chunks of 4 (a short last chunk).
+    (~2 s)"""
+    unet = create_model("egm_unet", num_classes=2, base_c=8,
+                        generator=torch.Generator().manual_seed(0)).eval()
+    seg = clipseg.CLIPDensePredT(clip_cfg=CLIPConfig(**KW), reduce_dim=16,
+                                 extract_layers=(1,))
+    init_weights(seg, torch.Generator().manual_seed(1))
+    seg.eval()
+    cond = torch.randn(2, 32, generator=torch.Generator().manual_seed(2))
+    raws = [SyntheticTPDataset(3, h=60, w=90)[i][0] for i in range(2)]
+    raws.append(SyntheticTPDataset(3, h=90, w=60)[2][0])
+    base_size, clip_size, clip_batch, unet_batch = 48, 64, 4, 2
+
+    u565s, u352s = eval_clipseg.resize_frames(raws, base_size, clip_size)
+    assert all(im.dtype == np.uint8 for im in u565s + u352s)
+    info = {}
+    cl, ul = eval_clipseg.run_branches(seg, unet, cond, u565s, u352s, clip_batch=clip_batch,
+                                       unet_batch=unet_batch, device="cpu", info=info)
+    assert info == {"clipseg_forwards": 2, "unet_forwards": 2, "logits_finite": True}
+
+    f565s, f352s = eval_clipseg.preprocess(raws, base_size, clip_size)
+    rep = np.repeat(np.stack(f352s), 2, axis=0)
+    conds = np.tile(cond.numpy(), (3, 1))
+    pad = lambda a: np.concatenate([a, np.zeros((clip_batch - len(a),) + a.shape[1:],  # noqa: E731
+                                                a.dtype)])
+    with torch.no_grad():
+        ref_cl = torch.cat([seg(torch.from_numpy(pad(rep[s:s + clip_batch])),
+                                torch.from_numpy(pad(conds[s:s + clip_batch])))[0]
+                            for s in range(0, 6, clip_batch)])[:6]
+        ref_ul = [None] * 3
+        batches = list(bucket_batches(f565s, unet_batch))
+        assert [idxs for idxs, _ in batches] == [[0, 1], [2]]
+        for idxs, batch in batches:
+            out = unet(torch.from_numpy(batch))["out"]
+            for row, i in enumerate(idxs):
+                h, w = f565s[i].shape[:2]
+                ref_ul[i] = out[row, :h, :w]
+    ref_cl = ref_cl[..., 0].reshape(3, 2, clip_size, clip_size).permute(0, 2, 3, 1)
+    np.testing.assert_array_equal(_bits(cl.contiguous()), _bits(ref_cl.contiguous()))
+    for got, want in zip(ul, ref_ul):
+        np.testing.assert_array_equal(_bits(got.contiguous()), _bits(want.contiguous()))
 
 
 KW = dict(embed_dim=32, image_resolution=64, vision_layers=2, vision_width=64,

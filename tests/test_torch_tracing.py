@@ -174,8 +174,8 @@ def test_fused_masks_records_every_stage(tiny_models):
     assert {k: tab[k]["parent"] for k in STAGES} == {
         "fusion": None, **{k: "fusion" for k in STAGES[1:-1]}, "fusion.readback": "fusion.fuse"}
     assert tab["fusion.images"]["value"] == len(raws)
-    # padded chunks as sent: CLIP inputs and prompt rows, float32 UNet batches
-    h2d = 2 * 4 * (64 * 64 * 3 + 32) * 4 + 2 * 2 * (64 * 128 * 3) * 4
+    # as sent: each uint8 CLIP frame once, the uint8 UNet batches
+    h2d = 3 * (64 * 64 * 3) + 2 * 2 * (64 * 128 * 3)
     assert tab["fusion.h2d_bytes"]["value"] == h2d
     children = sum(tab[k]["seconds"] for k in STAGES[1:-1])
     assert tab["fusion"]["self_seconds"] == pytest.approx(tab["fusion"]["seconds"] - children)

@@ -11,8 +11,11 @@ caption, short caption).  Runs on the current CUDA device unless ``--device
 cpu`` is given; with no GPU it refuses to start.
 
 Without a checkpoint file the tower is ``--clip-config``'s preset
-(``vit_b16`` by default, or ``longclip_l14``: Long-CLIP-L) with seeded
-random weights.
+(``vit_b16`` by default, ``longclip_l14``: Long-CLIP-L, or ``rn50x64``:
+OpenAI's RN50x64 stretched to 248 positions) with seeded random weights.
+A checkpoint whose widths are a preset's takes that preset's settings
+(``models.clip.model.preset_of``): ``--clip-weights RN50x64.pt --stretch``
+trains the ``rn50x64`` tower, its blocks recomputed in backward.
 
 ``--mesh-data N`` fine-tunes data-parallel on N ranks (default: every
 visible GPU; 1 on the CPU), N GPUs under NCCL or, with ``--device cpu``, N
@@ -65,7 +68,8 @@ def parse_args(argv=None):
     p.add_argument("--clip-config", default="vit_b16", choices=tuple(PRESETS),
                    help="the tower to fine-tune from random weights when "
                         "--clip-weights names no file (a checkpoint's shapes win): "
-                        "Long-CLIP ViT-B/16 or Long-CLIP-L (ViT-L/14)")
+                        "Long-CLIP ViT-B/16, Long-CLIP-L (ViT-L/14) or CLIP RN50x64 "
+                        "at 248 positions")
     p.add_argument("--tiny-clip", action="store_true")
     p.add_argument("--mesh-data", default=None, type=int,
                    help="data-parallel ranks (default: every visible GPU; 1 "
@@ -104,7 +108,7 @@ def fine_tune(group, args) -> dict:
     """The run on one rank of ``group`` (None: one process)."""
     from egm_unet_torch.cli.eval_clipseg import tiny_clip_config
     from egm_unet_torch.device import resolve_device
-    from egm_unet_torch.models.clip.model import CLIP, CLIPConfig
+    from egm_unet_torch.models.clip.model import CLIP, CLIPConfig, preset_of
     from egm_unet_torch.models.registry import init_weights
     from egm_unet_torch.utils.checkpoint import CheckpointManager
 
@@ -125,7 +129,7 @@ def fine_tune(group, args) -> dict:
 
         cfg_kw, state_dict = load_clip_checkpoint(args.clip_weights,
                                                   stretch_to_long=args.stretch)
-        cfg = CLIPConfig(**cfg_kw)
+        cfg = preset_of(CLIPConfig(**cfg_kw))
         say(f"loaded {args.clip_weights} (ctx {cfg.context_length})")
     else:
         cfg = PRESETS[args.clip_config]

@@ -11,8 +11,11 @@ The optimizer: AdamW (weight decay 1e-2 on every trainable parameter, as
 ``optax.adamw`` applies it) on optax's ``warmup_cosine_decay_schedule``
 (0 -> ``lr`` linearly, then cosine to ``lr * 1e-2``) written as a
 ``LambdaLR``.  ``positional_embedding`` is frozen (the JAX package's
-``set_to_zero`` leaf; ``positional_embedding_res`` trains); after each step
-``logit_scale`` is clamped at ln 100.
+``set_to_zero`` leaf; ``positional_embedding_res`` trains); so are the
+ModifiedResNet's BatchNorm statistics (every module's ``frozen_leaves``:
+the running ``mean`` and ``var``, which the JAX package's fine-tune moves
+like any leaf; eval-mode statistics are no weights, and a per-chip batch of
+48 estimates none); after each step ``logit_scale`` is clamped at ln 100.
 
 Data parallel (``group``; the JAX package's ``shard_map`` over the mesh's
 ``data`` axis): each rank encodes its rows of the global batch and takes the
@@ -177,15 +180,26 @@ def longclip_schedule(lr: float, warmup_steps: int, total_steps: int):
                                         max(total_steps, warmup_steps + 1), lr * 1e-2)
 
 
+def frozen_names(model: torch.nn.Module) -> set:
+    """The parameters the fine-tune leaves as they are: ``FROZEN``, and each
+    module's ``frozen_leaves`` (the RN tower's BatchNorm statistics)."""
+    names = set(FROZEN)
+    for prefix, mod in model.named_modules():
+        names.update(f"{prefix}.{leaf}" if prefix else leaf
+                     for leaf in getattr(mod, "frozen_leaves", ()))
+    return names
+
+
 def create_longclip_state(model: torch.nn.Module, lr: float = 1e-6,
                           weight_decay: float = 1e-2, warmup_steps: int = 200,
                           total_steps: int = 10000) -> TrainState:
-    """AdamW over every parameter but ``positional_embedding`` (frozen:
+    """AdamW over every parameter but ``frozen_names`` (frozen:
     ``requires_grad=False``, not the optimizer's) on ``longclip_schedule``."""
+    frozen = frozen_names(model)
     trainable = []
     for name, p in model.named_parameters():
-        p.requires_grad_(name not in FROZEN)
-        if name not in FROZEN:
+        p.requires_grad_(name not in frozen)
+        if name not in frozen:
             trainable.append(p)
     sched = longclip_schedule(lr, warmup_steps, total_steps)
     opt = torch.optim.AdamW(trainable, lr=1.0, weight_decay=weight_decay)

@@ -17,6 +17,12 @@ CSA attention goes through ``ops.cuda.csa.csa_attention``: the CUDA kernel for
 CUDA tensors, its plain version for CPU tensors.  Attention that returns its
 weights or carries a multiplicative mask goes through
 ``ops.attention.multi_head_attention``.
+
+Recomputation (``CLIPConfig.recompute``, set by ``RN50X64`` alone): the
+ModifiedResNet's Bottlenecks and the text tower's blocks keep only their
+inputs for backward and run again there (``recomputed``); each re-run is
+the span ``longclip.recompute`` and counts one
+``longclip.recomputed_blocks`` (``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -30,10 +36,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from egm_unet_torch.nn.layers import CoreConv, Dense, LayerNorm
+from egm_unet_torch.nn.layers import CoreConv, Dense, LayerNorm, remat
 from egm_unet_torch.ops.attention import multi_head_attention
 from egm_unet_torch.ops.cuda.csa import csa_attention
 from egm_unet_torch.ops.resize import resize_bicubic, resize_nearest
+from egm_unet_torch.utils.profiling import count, span
 
 KEEP_LEN = 20  # Long-CLIP keeps the first 20 positions verbatim
 
@@ -51,6 +58,9 @@ class CLIPConfig:
     transformer_heads: int = 8
     transformer_layers: int = 12
     long_clip: bool = True  # dual positional embeddings
+    # the ModifiedResNet's Bottlenecks and the text blocks run again in
+    # backward from their inputs (``recomputed``); set by RN50X64 alone
+    recompute: bool = False
 
     @property
     def vision_heads(self) -> int:
@@ -72,7 +82,46 @@ LONGCLIP_L14 = CLIPConfig(embed_dim=768, image_resolution=224, vision_layers=24,
                           vision_width=1024, vision_patch_size=14, context_length=248,
                           vocab_size=49408, transformer_width=768, transformer_heads=12,
                           transformer_layers=12, long_clip=True)
-PRESETS = {"vit_b16": VIT_B16, "longclip_l14": LONGCLIP_L14}
+# OpenAI CLIP RN50x64 (Radford et al., arXiv:2103.00020; clip/model.py
+# ModifiedResNet) at 448 px: Bottlenecks (3, 15, 36, 10) at width 128, an
+# attention pool of 64 heads over 14^2 + 1 tokens of width 4096; a text tower
+# of 12 blocks of width 1024 (16 heads) stretched to Long-CLIP's 248
+# positions; embed_dim 1024.  Both towers' blocks are recomputed: 48 triples
+# a step peak at 50.8 GB on an 80 GB H100 (73.9 with the Bottlenecks alone,
+# where the allocator runs at the card's edge and the rate spreads; ~173 GB
+# of saved activations with neither)
+RN50X64 = CLIPConfig(embed_dim=1024, image_resolution=448, vision_layers=(3, 15, 36, 10),
+                     vision_width=128, vision_patch_size=0, context_length=248,
+                     vocab_size=49408, transformer_width=1024, transformer_heads=16,
+                     transformer_layers=12, long_clip=True, recompute=True)
+PRESETS = {"vit_b16": VIT_B16, "longclip_l14": LONGCLIP_L14, "rn50x64": RN50X64}
+
+
+def preset_of(cfg: CLIPConfig) -> CLIPConfig:
+    """The preset with ``cfg``'s widths, which carries what a checkpoint's
+    shapes cannot say (``recompute``); ``cfg`` itself where none has them."""
+    for preset in PRESETS.values():
+        if dataclasses.replace(preset, recompute=cfg.recompute) == cfg:
+            return preset
+    return cfg
+
+
+def recomputed(block: nn.Module, *args, **kwargs):
+    """``block(*args, **kwargs)`` through ``nn.layers.remat`` (non-reentrant
+    ``torch.utils.checkpoint``; a plain call when autograd is off): only the
+    inputs are kept, and backward runs the block again, as the span
+    ``longclip.recompute``, counting one ``longclip.recomputed_blocks``."""
+    runs = []
+
+    def run(*a, **k):
+        if not runs:  # the forward; a later call is the re-run in backward
+            runs.append(True)
+            return block(*a, **k)
+        count("longclip.recomputed_blocks", 1)
+        with span("longclip.recompute"):
+            return block(*a, **k)
+
+    return remat(block, run, *args, **kwargs)
 
 
 def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -252,7 +301,8 @@ class CLIP(nn.Module):
             self.visual = ModifiedResNet(
                 cfg.vision_layers, output_dim=cfg.embed_dim,
                 heads=cfg.vision_width * 32 // 64,
-                input_resolution=cfg.image_resolution, width=cfg.vision_width)
+                input_resolution=cfg.image_resolution, width=cfg.vision_width,
+                recompute=cfg.recompute)
         else:
             self.visual = VisionTransformer(cfg)
         tw = cfg.transformer_width
@@ -301,7 +351,11 @@ class CLIP(nn.Module):
         x = x + self._text_pos().to(dtype)[None]
         bias = self._causal_bias(x.device)
         for i in range(self.cfg.transformer_layers):
-            x = getattr(self, f"text_resblock{i}")(x, attn_bias=bias)
+            block = getattr(self, f"text_resblock{i}")
+            if self.cfg.recompute:
+                x = recomputed(block, x, attn_bias=bias)
+            else:
+                x = block(x, attn_bias=bias)
         x = self.ln_final(x)
         if not pool:
             return x

@@ -9,9 +9,15 @@ plain ``ops.attention.multi_head_attention`` (standard attention, not CSA:
 it reaches no kernel, as in the JAX package).
 
 The BatchNorms are eval-mode with all four of scale, bias, mean and var as
-parameters, as the JAX package keeps them in ``params``: the tower is
-reached through RN checkpoints for inference, and the names bridge to the
-flax tree (``utils/from_flax.py``) like every other parameter.
+parameters, as the JAX package keeps them in ``params``, so that the names
+bridge to the flax tree (``utils/from_flax.py``) like every other parameter.
+The tower serves ``encode_image`` from an RN checkpoint and is fine-tuned by
+the Long-CLIP step (``engine/longclip_train.py``), which leaves the running
+statistics as loaded (``InferenceBatchNorm.frozen_leaves``): they take no
+gradient, no AdamW moment and no decay, where the JAX package's fine-tune
+would move them.  With ``recompute`` (``CLIPConfig.recompute``, which
+``RN50X64`` sets) every Bottleneck keeps only its input for backward and
+runs again there (``models.clip.model.recomputed``).
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from egm_unet_torch.models.clip.model import normal_
+from egm_unet_torch.models.clip.model import normal_, recomputed
 from egm_unet_torch.nn.layers import CoreConv, Dense
 from egm_unet_torch.ops.attention import multi_head_attention
 from egm_unet_torch.ops.pooling import avg_pool2d
@@ -30,7 +36,10 @@ from egm_unet_torch.ops.pooling import avg_pool2d
 
 class InferenceBatchNorm(nn.Module):
     """Eval-mode BatchNorm2d over the last axis (eps 1e-5), in float32,
-    returned in the input's dtype."""
+    returned in the input's dtype.  ``mean`` and ``var`` are the running
+    statistics, which a fine-tune leaves as loaded (``frozen_leaves``)."""
+
+    frozen_leaves = ("mean", "var")
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -115,12 +124,14 @@ class AttentionPool2d(nn.Module):
 
 class ModifiedResNet(nn.Module):
     """ref: clip/model.py:106-157.  ``layers``: the Bottleneck count per
-    stage, e.g. (3, 4, 6, 3) for RN50."""
+    stage, e.g. (3, 4, 6, 3) for RN50.  ``recompute``: each Bottleneck is
+    run again in backward from its input (``models.clip.model.recomputed``)."""
 
     def __init__(self, layers: Sequence[int], output_dim: int, heads: int,
-                 input_resolution: int = 224, width: int = 64):
+                 input_resolution: int = 224, width: int = 64, recompute: bool = False):
         super().__init__()
         self.layers = tuple(layers)
+        self.recompute = recompute
         w = width
         for i, (cin, feats, stride) in enumerate(
                 [(3, w // 2, 2), (w // 2, w // 2, 1), (w // 2, w, 1)]):
@@ -148,6 +159,7 @@ class ModifiedResNet(nn.Module):
         x = avg_pool2d(x, 2, 2, 0)
         for stage, blocks in enumerate(self.layers):
             for blk in range(blocks):
-                x = getattr(self, f"layer{stage + 1}_{blk}")(x)
+                block = getattr(self, f"layer{stage + 1}_{blk}")
+                x = recomputed(block, x) if self.recompute else block(x)
         return self.attnpool(x, return_all_tokens=return_all)
 

@@ -199,7 +199,7 @@ from egm_unet_torch.models.vitseg import VITDensePredT
 from egm_unet_torch.nn import extra, grfb, layers
 from egm_unet_torch.nn.attention import MCALayer, mca_kernel_size
 from egm_unet_torch.nn.layers import (BasicConv, ConvBNReLU, DoubleConv,
-                                      EdgeAwareFeatureEnhancer, cast_weights)
+                                      EdgeAwareFeatureEnhancer, cast_weights, takes_conv1x1)
 from egm_unet_torch.ops.cuda import (build, conv1x1, conv3x3, csa, edge, gates,
                                      launch_counts, mca, reset_launch_counts, resize2x,
                                      upconv)
@@ -211,7 +211,8 @@ from egm_unet_torch.serving import Predictor, PredictorConfig, bucket_batches, b
 from egm_unet_torch.utils.checkpoint import (best_epoch, folded_state_dict, load_payload,
                                              saved_epochs)
 from egm_unet_torch.utils.convert import load_clip_checkpoint, load_converted_clip
-from egm_unet_torch.utils.profiling import device_synchronized, span, table, trace
+from egm_unet_torch.utils.profiling import (device_synchronized, recording, reset_table, span,
+                                             table, trace)
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -2751,6 +2752,116 @@ def phase_clip_resnet(dev) -> dict:
         check(r["max_abs_diff"] <= r["tol"], f"clip_resnet {key}: card vs CPU {r}")
     return launches
 
+# ------------------------------------------------------------ SegFormer
+
+SEGFORMER_BATCH = 32
+# the bf16 forward against the float32 one on the CPU at 2 x 256 x 320, as a
+# share of the logits' norm: 0.0145 on an H100 (the bf16 program's error, level
+# with the reference's own bf16 error in the cell); a broken route reads ~1
+SEGFORMER_BF16_REL_RMS = 0.05
+# K9 against the library route it would replace (cuDNN's conv, the bias add,
+# the ReLU) at batch 32 of the 576x768 bucket: SegFormer-B5's head fuse (a
+# folded 1x1 conv 3072 -> 768 with bias and ReLU), its per-stage Linears as
+# 1x1 convs, and the fuse's map at narrower K, whose tiles keep wider slices
+# of the weights resident (conv1x1_tile's BN from 16 to 128).
+SEGFORMER_1X1 = [("linear_fuse", 144, 192, 3072, 768, True),
+                 ("linear_c1", 144, 192, 64, 768, False),
+                 ("linear_c2", 72, 96, 128, 768, False),
+                 ("linear_c3", 36, 48, 320, 768, False),
+                 ("linear_c4", 18, 24, 512, 768, False),
+                 ("fuse_k2048", 144, 192, 2048, 768, True),
+                 ("fuse_k1024", 144, 192, 1024, 768, True),
+                 ("fuse_k512", 144, 192, 512, 768, True),
+                 ("fuse_k256", 144, 192, 256, 768, True)]
+
+
+def segformer_conv1x1_times() -> list:
+    """K9 and the library route at ``SEGFORMER_1X1``, batch 32: the plain
+    version's bits on exact operands, one bf16 step on seeded ReLU'd maps,
+    and the device times that ``nn/layers.py::takes_conv1x1``'s rule is set
+    from."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    rows = []
+    for label, h, w, k, n, relu in SEGFORMER_1X1:
+        key = (h, w, k, n, True, relu)
+        xe, we, be = conv1x1_operands(SEGFORMER_BATCH, key, True, gen)
+        check(bits_equal(conv1x1.conv1x1_gemm(xe, we, be, relu=relu),
+                         conv1x1.conv1x1_plain(xe, we, be, relu=relu)),
+              f"conv1x1_gemm {label}: exact operands, not the plain version's bits")
+        del xe, we, be
+        operands = conv1x1_operands(SEGFORMER_BATCH, key, False, gen)
+        call = conv1x1_call(*operands, relu)
+        err, tol, _ = compare(call[2], call[3], torch.bfloat16)
+        check(err <= tol, f"conv1x1_gemm {label}: max abs err {err} > tol {tol}")
+        r = {"site": label, "shape": [SEGFORMER_BATCH, h, w, k, n], "relu": relu,
+             "tile": call[8]["tile"], "takes_conv1x1": takes_conv1x1(*operands),
+             "device_ms": device_time_ms(call[2]), "library_device_ms": device_time_ms(call[4]),
+             "bound_ms": bound(call[5], call[6], torch.bfloat16)[0], "max_abs_err": err,
+             "tol": tol}
+        r["k9_over_library"] = r["device_ms"] / r["library_device_ms"]
+        rows.append(r)
+        del call, operands
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_segformer(dev) -> dict:
+    """SegFormer-B5 (``models/segformer.py``) served as ``cli/serve.py
+    --model segformer_b5`` serves it: ``Predictor`` in bf16 on seeded weights,
+    one bucket batch of 32 synthetic 565x752 frames; its logits, launches
+    (``conv1x1_gemm`` among them), the 52 attention calls the program
+    counts, ms per batch and a profile (``segformer_profile.txt``: the SDPA
+    backend by kernel name); the same weights in float32 on the card and on
+    the CPU at 2 x 256 x 320; and K9 against the library route at the head's
+    1x1 shapes (``segformer_conv1x1_times``)."""
+    rows = segformer_conv1x1_times()
+    cfg = PredictorConfig(model_name="segformer_b5", num_classes=2,
+                          batch_size=SEGFORMER_BATCH, dtype="bfloat16")
+    pred = Predictor(config=cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    frames = [synthetic_tp_sample(i, 565, 752)[0] for i in range(SEGFORMER_BATCH)]
+    [(_, batch)] = bucket_batches([pred.preprocess(f) for f in frames], SEGFORMER_BATCH)
+    x = torch.from_numpy(batch).to("cuda", pred.dtype)
+    reset_launch_counts()
+    reset_table()
+    with recording():
+        logits = pred.model(x)["out"]
+        torch.cuda.synchronize()
+    counters, launches = table(), launch_counts()
+    calls = counters.get("segformer.attention_calls", {}).get("value")
+    check(counters.get("segformer.forwards", {}).get("value") == 1 and calls == 52,
+          f"SegFormer counters {counters}")
+    # the head's 3072 -> 768 fuse is the one bf16 1x1 conv: conv1x1_suits declines it
+    check(launches["conv1x1_gemm"] == 0, f"SegFormer took conv1x1_gemm: {launches}")
+    check(tuple(logits.shape) == (SEGFORMER_BATCH, *BUCKET, 2)
+          and bool(torch.isfinite(logits).all()), f"SegFormer logits {tuple(logits.shape)}")
+    ms = time_ms(lambda: pred.forward(x), reps=5, warm=2)
+    prof = phase_profile("segformer_profile", lambda: pred.forward(x), "segformer_profile.txt",
+                         {"conv1x1_gemm": "conv1x1_gemm_kernel", "sdpa_flash": "flash",
+                          "sdpa_efficient": "fmha", "sdpa_cudnn": "cudnn_generated"},
+                         require=False)
+    crop = x[:2, :256, :320].float().cpu()
+    cpu_model = create_model("segformer_b5", generator=torch.Generator().manual_seed(SEED)).eval()
+    cpu = cpu_model(crop)["out"]
+    card_model = cpu_model.to("cuda")
+    reset_launch_counts()
+    gpu = card_model(crop.cuda())["out"].cpu()
+    card_vs_cpu_record("segformer_b5", list(crop.shape), gpu, cpu, launch_counts(), masks=True)
+    bf16 = pred.model(crop.cuda().bfloat16())["out"].float().cpu()
+    rel_rms = float((bf16 - cpu).norm() / cpu.norm())
+    check(rel_rms < SEGFORMER_BF16_REL_RMS,
+          f"SegFormer bf16 on the card vs float32 on the CPU: rel rms {rel_rms}")
+    rec = {"phase": "segformer", "batch": SEGFORMER_BATCH, "bucket": list(BUCKET),
+           "dtype": "bfloat16", "launches": launches, "attention_calls": calls,
+           "device_launches_per_forward": prof["launches"], "ms_per_batch": ms,
+           "img_per_s": SEGFORMER_BATCH / ms * 1e3,
+           "bf16_vs_cpu_f32_rel_rms": rel_rms,
+           "conv1x1": rows, "card": dev["nvidia_smi"]}
+    emit(rec)
+    del pred, x, logits, card_model
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------------ data parallel
 
 # two ranks share the card over gloo (NCCL takes one GPU a rank); the held
@@ -4048,6 +4159,10 @@ def main() -> None:
     phase_text_train_card_vs_cpu()
     main_paths["clip_resnet"] = phase_clip_resnet(dev)
     mark("text_branch")
+    # SegFormer-B5 served in bf16
+    with torch.inference_mode():
+        main_paths["segformer"] = phase_segformer(dev)
+    mark("segformer")
     # data parallel: NCCL groups of one, and two ranks sharing the card over gloo
     main_paths["dp_train"] = launch(dp_train_world1, 1, "nccl", dev)[0]
     two_ranks = phase_dp_two_ranks_card(dev)

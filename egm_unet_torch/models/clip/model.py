@@ -36,7 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from egm_unet_torch.nn.layers import CoreConv, Dense, LayerNorm, remat
+from egm_unet_torch.nn.layers import CoreConv, Dense, LayerNormF32, remat
 from egm_unet_torch.ops.attention import multi_head_attention
 from egm_unet_torch.ops.cuda.csa import csa_attention
 from egm_unet_torch.ops.resize import resize_bicubic, resize_nearest
@@ -127,15 +127,6 @@ def recomputed(block: nn.Module, *args, **kwargs):
 def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
     with torch.no_grad():
         t.copy_(torch.randn(t.shape, generator=generator) * std)
-
-
-class LayerNormF32(LayerNorm):
-    """The float32 LayerNorm with its result cast back to the input's dtype."""
-
-    flax_child = "LayerNorm_0"
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x).to(x.dtype)
 
 
 class QuickGELU(nn.Module):

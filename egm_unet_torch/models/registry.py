@@ -1,10 +1,12 @@
 """Model registry: every configuration of the JAX package's
 ``models/registry.py`` (vanilla UNet, the GRFB-UNet baseline, EGM-UNet and
 its A/B/C ablation grid), BN folded for inference or with BatchNorm for
-training."""
+training; and SegFormer-B5 (``models/segformer.py``), which the JAX package
+lacks."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -92,9 +94,22 @@ def create_model(name: str = "egm_unet", num_classes: int = 2, base_c: int = 32,
     state dicts are the same on every route.  ``remat`` (``False`` | ``True``
     | ``"stage"`` | ``"fine"``) checkpoints the EGM family's stages for
     training (``models.egm_unet.EGMUNet``); the vanilla UNet ignores it, as
-    the JAX registry does."""
+    the JAX registry does.
+
+    ``"segformer_b5"`` builds SegFormer-B5 (``models/segformer.py``) with
+    ``num_classes`` labels; ``fold_bn`` folds its head's BatchNorm, and
+    ``base_c``, ``bilinear``, the kernel routes and ``remat`` do not apply
+    to it."""
+    # imported here: models/segformer.py reaches utils/, whose package
+    # imports this module
+    from egm_unet_torch.models import segformer
+
     impls = dict(conv_impl=conv_impl, upsample_impl=upsample_impl, fold_bn=fold_bn)
-    if name == "unet":
+    if name in segformer.PRESETS:
+        model = segformer.SegFormer(
+            dataclasses.replace(segformer.PRESETS[name], num_labels=num_classes),
+            fold_bn=fold_bn)
+    elif name == "unet":
         model = UNet(num_classes=num_classes, bilinear=bilinear, base_c=base_c,
                      **impls)
     elif name in MODEL_CONFIGS:
@@ -104,7 +119,7 @@ def create_model(name: str = "egm_unet", num_classes: int = 2, base_c: int = 32,
                         **impls, **MODEL_CONFIGS[name])
     else:
         raise ValueError(f"unknown model {name!r}; choose from "
-                         f"{['unet', *MODEL_CONFIGS]}")
+                         f"{['unet', *MODEL_CONFIGS, *segformer.PRESETS]}")
     if generator is not None:
         (init_weights if fold_bn else init_reference)(model, generator)
     return model

@@ -14,8 +14,9 @@ chosen by ``fold_bn`` when a block is built, as in the JAX package:
   computes its edge map with ``eafe_edge`` (kernel K8 on the card).  In
   bfloat16 every 1x1 / stride 1 / pad 0 / groups 1 conv whose widths are
   multiples of 8 goes through ``conv1x1_gemm`` (K9), its bias and a
-  BasicConv's ReLU in the kernel's epilogue (``takes_conv1x1``); float32
-  keeps ``conv2d``.
+  BasicConv's ReLU in the kernel's epilogue, where the slice of the weights
+  its N asks for fits the kernel's shared memory (``takes_conv1x1``);
+  float32 keeps ``conv2d``.
 - ``fold_bn=False``, the training graph: conv -> ``BatchNorm`` -> ReLU in
   plain, differentiable PyTorch, no kernel.  ``module.train()`` normalises
   with the batch's statistics (the global batch's under a data group:
@@ -52,7 +53,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from egm_unet_torch.ops.conv import conv2d
-from egm_unet_torch.ops.cuda.conv1x1 import conv1x1_gemm
+from egm_unet_torch.ops.cuda.conv1x1 import conv1x1_gemm, conv1x1_suits
 from egm_unet_torch.ops.cuda.conv3x3 import conv3x3_gemm, conv3x3_pair_gemm
 from egm_unet_torch.ops.cuda.edge import eafe_edge, eafe_edge_plain
 from egm_unet_torch.ops.cuda.upconv import up_concat_conv
@@ -97,10 +98,15 @@ def takes_conv1x1(x: torch.Tensor, kernel: torch.Tensor,
     """Whether a 1x1 / stride 1 / pad 0 / groups 1 conv of the folded graph,
     ``kernel`` (1, 1, K, N) with ``bias``, runs as ``conv1x1_gemm`` (K9) on
     ``x``: in bfloat16 (the kernel's dtype; float32 keeps ``conv2d``), K and N
-    multiples of 8, outside a spatial group, calibration and the int8-conv
-    modes, and with no tensor that autograd would differentiate."""
-    return (x.dtype == torch.bfloat16 and kernel.shape[2] % 8 == 0
-            and kernel.shape[3] % 8 == 0 and spatial() is None and convs_on_kernels()
+    multiples of 8, where the slice of the weights N asks for fits the
+    kernel's shared memory (``conv1x1_suits``: SegFormer's 3072 -> 768 head
+    fuse keeps ``conv2d``),
+    outside a spatial group, calibration and the int8-conv modes, and with
+    no tensor that autograd would differentiate."""
+    k, n = kernel.shape[2], kernel.shape[3]
+    return (x.dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+            and conv1x1_suits(k, n, x.numel() // k) and spatial() is None
+            and convs_on_kernels()
             and not (torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (x, kernel, bias))))
 
@@ -188,12 +194,13 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm (eps 1e-5) in float32 with float32 parameters ``scale`` and
-    ``bias`` whatever the compute dtype; the result stays float32, as flax
-    ``nn.LayerNorm(dtype=float32)`` leaves it."""
+    """LayerNorm (eps 1e-5 unless given) in float32 with float32 parameters
+    ``scale`` and ``bias`` whatever the compute dtype; the result stays
+    float32, as flax ``nn.LayerNorm(dtype=float32)`` leaves it."""
 
-    def __init__(self, width: int):
+    def __init__(self, width: int, eps: float = 1e-5):
         super().__init__()
+        self.eps = eps
         self.scale = nn.Parameter(torch.ones(width))
         self.bias = nn.Parameter(torch.zeros(width))
 
@@ -201,7 +208,16 @@ class LayerNorm(nn.Module):
         if self.scale.dtype != torch.float32:
             raise TypeError("LayerNorm parameters must stay float32; cast the "
                             "model with nn.layers.cast_weights, not .to(dtype)")
-        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, 1e-5)
+        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, self.eps)
+
+
+class LayerNormF32(LayerNorm):
+    """The float32 LayerNorm with its result cast back to the input's dtype."""
+
+    flax_child = "LayerNorm_0"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x).to(x.dtype)
 
 
 def cast_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:

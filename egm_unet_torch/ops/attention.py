@@ -10,6 +10,11 @@ are float32 whatever the working dtype; the weights are cast to ``v.dtype``
 before the last product, whose sums are float32.  This is plain tensor code
 (the JAX package computes it outside any Pallas kernel); the fused CSA kernel
 lives in ``egm_unet_torch/ops/cuda/csa.py``.
+
+``sdpa_attention`` is the plain attention of queries over a different
+number of keys (SegFormer's spatial-reduction attention, which the JAX
+package lacks) in the working dtype, through the library's fused
+``scaled_dot_product_attention``: no score tensor in device memory.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -81,3 +87,15 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if return_weights:
         return out, weights
     return out
+
+
+def sdpa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   num_heads: int) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(hd)) v`` per head for q [B, N, D] and k, v
+    [B, M, D] (M may differ from N), heads split as ``multi_head_attention``
+    splits them, in the working dtype through
+    ``F.scaled_dot_product_attention`` (its float32 scores stay in the
+    fused kernel on the card).  Returns [B, N, D]."""
+    out = F.scaled_dot_product_attention(_split_heads(q, num_heads), _split_heads(k, num_heads),
+                                         _split_heads(v, num_heads))
+    return _merge_heads(out)

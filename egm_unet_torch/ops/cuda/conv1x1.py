@@ -16,6 +16,10 @@ of BM x KC stages; ``conv1x1_tile`` picks (BM, BN, KC) and
 ``conv1x1_smem_bytes`` repeats the kernel's shared memory for the host-side
 tests.
 
+``conv1x1_suits`` says where that design beats the library route: where
+the slice its N asks for fits beside the ring, which the dispatch of the
+folded graph (``nn/layers.py::takes_conv1x1``) requires.
+
 ``conv1x1_gemm`` launches the kernel for CUDA tensors and runs
 ``conv1x1_plain``, the float32 product, bias and ReLU rounded once, for CPU
 tensors.  The folded graph's blocks (``nn/layers.py``, ``nn/grfb.py``) send
@@ -91,6 +95,11 @@ def conv1x1_smem_bytes(tile: tuple, k: int) -> int:
     return 2 * (RING * bm * (kc + 8) + kp * (bn + 8) + 8 * (bm * wn // 8) * (bn // wn + 8))
 
 
+def slice_for(n: int) -> int:
+    """The narrowest of ``SLICES`` that covers N (128 above)."""
+    return next((s for s in SLICES if n <= s), SLICES[-1])
+
+
 def conv1x1_tile(k: int, n: int, m: int) -> tuple:
     """``(BM, BN, KC)`` for K -> N on M pixels: KC the narrowest of
     ``CHUNKS`` that covers K (64 above), BN the narrowest of ``SLICES`` that
@@ -99,7 +108,7 @@ def conv1x1_tile(k: int, n: int, m: int) -> tuple:
     ``STAGE_ELEMS`` and a thread at 64 accumulators, or ``SMALL_M`` where M
     is at most that (a larger tile would only multiply zeros)."""
     kc = next((c for c in CHUNKS if k <= c), CHUNKS[-1])
-    bn = next((s for s in SLICES if n <= s), SLICES[-1])
+    bn = slice_for(n)
     while True:
         bm = SMALL_M if m <= SMALL_M else min(STAGE_ELEMS // kc, ACC_ELEMS // bn)
         tile = (bm, bn, kc)
@@ -108,6 +117,24 @@ def conv1x1_tile(k: int, n: int, m: int) -> tuple:
         if bn == SLICES[0]:
             raise ValueError(f"conv1x1_gemm: K = {k} does not fit shared memory")
         bn //= 2
+
+
+def conv1x1_suits(k: int, n: int, m: int) -> bool:
+    """Whether K9's resident-weight design suits K -> N on M pixels: the
+    slice ``conv1x1_tile`` keeps in shared memory is the one N asks for
+    (``slice_for``).  Where K is too wide for it, the tile halves the slice
+    and each of the N / BN slices streams the map again; there cuDNN's conv
+    with its bias and ReLU passes is as fast or faster.  At batch 32 of the
+    576x768 bucket (H100 80GB HBM3, 700 W; PERF.md) K9 took 0.41x cuDNN's
+    time at 256
+    -> 768 on the 144x192 grid (BN 128), 1.06x at 512 -> 768 (BN 64), 2.9x
+    at 1024 -> 768 (BN 32) and 2.8x at SegFormer's 3072 -> 768 head fuse
+    (BN 16); every EGM-UNet site keeps its slice."""
+    try:
+        bn = conv1x1_tile(k, n, m)[1]
+    except ValueError:  # no slice of K rows fits shared memory
+        return False
+    return bn == slice_for(n)
 
 
 def conv1x1_flops(m: int, k: int, n: int) -> tuple:

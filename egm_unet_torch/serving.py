@@ -6,7 +6,9 @@ grouped into shape buckets (multiples of 64 pixels), packed into
 fixed-size batches whose free slots hold zero images (``bucket_batches``),
 run through the BN-folded model, and their argmax masks resized back to each
 image's original size (``restore_mask``).  In ``bfloat16`` the weights are
-cast to bfloat16, as the JAX package's deployment cast does.  ``unet_state``
+cast to bfloat16, as the JAX package's deployment cast does, or by the
+model's own ``serving_cast`` where it has one (SegFormer's keeps its
+LayerNorms in float32).  ``unet_state``
 reads the weights that ``Predictor.from_checkpoint``, ``cli/predict.py`` and
 the fusion CLIs load.
 
@@ -106,6 +108,13 @@ def unet_state(path: str, model_name: str, num_classes: int,
     return None
 
 
+def serving_cast(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """``model`` in the working ``dtype``: by the model's own
+    ``serving_cast`` where it has one, else every parameter (the UNets)."""
+    own = getattr(model, "serving_cast", None)
+    return own(dtype) if own is not None else model.to(dtype)
+
+
 @dataclasses.dataclass
 class PredictorConfig:
     model_name: str = "egm_unet"
@@ -149,7 +158,9 @@ class Predictor:
         else:
             model = load_flax_variables(create_model(config.model_name, **kw),
                                         variables)
-        self.model = model.to(self.device, self.dtype).eval()
+        if config.quant and not getattr(model, "int8_serving", True):
+            raise ValueError(f"quant {config.quant!r}: {config.model_name} has no int8 route")
+        self.model = serving_cast(model.to(self.device), self.dtype).eval()
 
     @classmethod
     def from_checkpoint(cls, path: str, config: PredictorConfig = PredictorConfig(),

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from egm_unet_torch.models import create_model
 from egm_unet_torch.nn import grfb, layers
-from egm_unet_torch.nn.layers import BasicConv, Conv, takes_conv1x1
+from egm_unet_torch.nn.layers import BasicConv, Conv, cast_weights, takes_conv1x1
 from egm_unet_torch.ops import quant as tq
 from egm_unet_torch.ops.cuda import build, conv1x1, launch_counts, reset_launch_counts
 from egm_unet_torch.ops.cuda.common import SMEM_LIMIT
@@ -295,6 +295,63 @@ def test_kernel_symbol_is_outside_the_bf16_roofline():
 
 # ------------------------------------------------------------------ dispatch
 
+# SegFormer-B5's head fuse at batch 32 of the 576x768 bucket: a folded 1x1
+# conv 3072 -> 768 with bias and ReLU on the 144x192 grid
+FUSE = (32, 144, 192, 3072, 768)
+
+
+def _meta_call(b, h, w, k, n):
+    return (torch.empty(b, h, w, k, dtype=torch.bfloat16, device="meta"),
+            torch.empty(1, 1, k, n, dtype=torch.bfloat16, device="meta"),
+            torch.empty(n, device="meta"))
+
+
+def test_dispatch_declines_the_segformer_fuse_and_takes_every_egm_site():
+    """K9 keeps its weights' slice resident: the fuse's K halves it to 16
+    columns, 48 slices each streaming the 5.4 GB map, where cuDNN wins
+    (``conv1x1_suits``); every EGM-UNet site keeps the slice its N asks
+    for, at batch 1 and 32."""
+    b, h, w, k, n = FUSE
+    assert conv1x1.conv1x1_tile(k, n, b * h * w) == (128, 16, 64)
+    with torch.no_grad():
+        assert not takes_conv1x1(*_meta_call(*FUSE))
+        for batch in (1, 32):
+            for h, w, k, n, _, _ in PATH:
+                assert takes_conv1x1(*_meta_call(batch, h, w, k, n)), (batch, h, w, k, n)
+    assert len(PATH) == 36
+
+
+@pytest.mark.parametrize("k,n,suits", [
+    (448, 384, True),    # the widest EGM-UNet site: 128-column slices
+    (448, 64, True),     # one 64-column slice covers N
+    (256, 768, True),    # 128-column slices: 0.41x cuDNN's time on the card
+    (512, 768, False),   # halved to 64: 1.06x
+    (1024, 768, False),  # halved to 32: 2.9x
+    (3072, 768, False),  # the fuse, halved to 16: 2.8x
+    (3072, 16, True),    # one 16-column slice covers N: the map streams once
+    (8192, 16, False),   # no slice fits shared memory
+])
+def test_conv1x1_suits_where_the_slice_is_not_halved(k, n, suits):
+    assert conv1x1.conv1x1_suits(k, n, 32 * 144 * 192) is suits
+
+
+def test_segformer_head_fuse_keeps_conv2d(monkeypatch):
+    from egm_unet_torch.models.segformer import SegFormerHead
+
+    calls = _spy(monkeypatch)
+    head = SegFormerHead((8, 16, 40, 64), 768, 2, fold_bn=True)
+    for p in head.parameters():
+        torch.nn.init.normal_(p, std=0.05, generator=torch.Generator().manual_seed(5))
+    head = head.bfloat16()
+    feats = [torch.randn(1, 8 >> i, 8 >> i, c).bfloat16() for i, c in enumerate((8, 16, 40, 64))]
+    with torch.no_grad():
+        assert head(feats).shape == (1, 8, 8, 2)
+    assert not calls
+    small = SegFormerHead((8, 16, 40, 64), 32, 2, fold_bn=True).bfloat16()
+    with torch.no_grad():
+        small(feats)
+    assert calls == Counter({(128, 32, True, True): 1})  # a 128 -> 32 fuse fits K9
+
 def _spy(monkeypatch):
     """Count the folded graph's calls of the K9 wrapper by (K, N, bias, relu)."""
     calls = Counter()
@@ -413,6 +470,23 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K9 has no CPU kernel, only its plain version")
     return torch.device("cuda")
+
+
+@pytest.mark.card
+def test_card_launches_of_the_bf16_forwards(card):
+    """57 K9 launches a bf16 EGM-UNet forward; none a SegFormer-B5 one,
+    whose fuse keeps cuDNN."""
+    x = torch.randn(1, 64, 96, 3, generator=torch.Generator().manual_seed(3)).to(card)
+    for name, want in (("egm_unet", 57), ("segformer_b5", 0)):
+        model = create_model(name, num_classes=2,
+                             generator=torch.Generator().manual_seed(0)).eval().to(card)
+        model = cast_weights(model, torch.bfloat16) if name == "segformer_b5" \
+            else model.to(torch.bfloat16)
+        reset_launch_counts()
+        with torch.inference_mode():
+            model(x.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        assert launch_counts()["conv1x1_gemm"] == want, name
 
 
 @pytest.mark.card
